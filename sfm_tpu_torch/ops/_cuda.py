@@ -1,0 +1,140 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The kernels live in ``sfm_tpu_torch/csrc/*.cu`` behind a plain C
+interface.  On first use they are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library under ``sfm_tpu_torch/_build/``
+(named by a hash of the sources and flags, so an edited source
+rebuilds) and loaded with ``ctypes``.  Nothing here runs at import
+time: a machine without ``nvcc`` or a card imports the package fine
+and only fails when a CUDA tensor reaches a kernel wrapper.
+
+Each C entry point launches on the stream it is given (PyTorch's
+current stream), allocates nothing and returns ``cudaGetLastError()``;
+:func:`check` raises on a non-zero code.  Every wrapper counts its
+launches in :data:`LAUNCHES` so a run can show which kernels it went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> launches since the last reset, one entry per kernel wrapper.
+LAUNCHES = {"detect_maps": 0, "fused_orient_descriptor": 0,
+            "descriptor_sample": 0, "match_top2": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # base, taps, n_planes, H, W, thresh, edge_limit, resp, aux, stream
+    "sfm_detect_maps": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
+    # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, wsp,
+    # d1, ori1, ori2, dup, stream
+    "sfm_fused_orient_descriptor": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                    _P, _P, _P, _P, _P, _P, _P),
+    # atlas, H, W, Hp, Wp, x, y, scale, ori, count, K, w2d, wsp, out, stream
+    "sfm_descriptor_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                              _P, _P, _P, _P),
+    # d1, d2, valid2, n1, n2, best, second, index, stream
+    "sfm_match_top2_bf16": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "sfm_match_top2_f32": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+}
+
+
+class _Library:
+    """The loaded shared library plus how it was obtained."""
+
+    def __init__(self, lib, path, build_log):
+        self.lib = lib
+        self.path = path
+        self.build_log = build_log
+
+
+_LIB: _Library | None = None
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home is None:
+        from torch.utils.cpp_extension import CUDA_HOME as home
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library() -> _Library:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    headers = sorted(SRC_DIR.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in headers + sources:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    so = BUILD_DIR / f"libsfm_kernels_{h.hexdigest()[:16]}.so"
+    log = ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    _LIB = _Library(lib, so, log)
+    return _LIB
+
+
+def check(code: int, name: str):
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):
+    """Validate a tensor handed to a kernel; the kernels take dense
+    row-major buffers on one card."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,126 @@
+"""Dense image ops: Gaussian taps, separable edge-clamped blur,
+blur + 2x decimation and bilinear sampling (counterpart of
+``sfm_tpu/ops/image.py``).
+
+The blurs are depthwise ``conv2d`` calls on an edge-replicated pad.
+On the card they go through cuDNN, whose float32 default is TF32;
+every caller runs under :func:`~sfm_tpu_torch.utils.precision.
+f32_precision` because these blurs feed the DoG threshold.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sfm_tpu_torch.utils.precision import f32_matmul
+
+
+def gaussian_kernel(radius: int, variance: float) -> np.ndarray:
+    """Truncated, normalized Gaussian taps [2r+1] (host-side constant)."""
+    j = np.arange(-radius, radius + 1, dtype=np.float64)
+    if variance <= 1e-12:
+        k = (j == 0).astype(np.float64)
+    else:
+        k = np.exp(-(j * j) / (2.0 * variance))
+    k = k / k.sum()
+    return k.astype(np.float32)
+
+
+@f32_matmul
+def blur(img, taps):
+    """Separable blur of [H, W] with 1-D taps (numpy or tensor), edge
+    clamped: along W first, then along H."""
+    taps = torch.as_tensor(np.asarray(taps, np.float32), device=img.device)
+    r = taps.shape[0] // 2
+    x = F.pad(img[None, None], (r, r, 0, 0), mode="replicate")
+    x = F.conv2d(x, taps.view(1, 1, 1, -1))
+    x = F.pad(x, (0, 0, r, r), mode="replicate")
+    return F.conv2d(x, taps.view(1, 1, -1, 1))[0, 0]
+
+
+def scale_down(img, variance: float = 0.5):
+    """5-tap Gaussian blur + 2x decimation (one octave step)."""
+    return blur(img, gaussian_kernel(2, variance))[0::2, 0::2].contiguous()
+
+
+def bilinear_sample(img, x, y):
+    """Bilinear sample [H, W] at float coords (x = col, y = row),
+    clamped to the image; integer coords hit pixel centers."""
+    H, W = img.shape
+    x = torch.clamp(x, 0.0, W - 1.0)
+    y = torch.clamp(y, 0.0, H - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0 = x0.to(torch.int64)
+    y0 = y0.to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    v00 = img[y0, x0]
+    v01 = img[y0, x1]
+    v10 = img[y1, x0]
+    v11 = img[y1, x1]
+    return (v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx
+            + v10 * fy * (1 - fx) + v11 * fy * fx)
+
+
+# Patch geometry of the TPU sampling kernels (sfm_tpu/ops/pallas_sample.py
+# fused_orient_descriptor / descriptor_sample): a 40-column, 48-row patch
+# whose origin depends only on the keypoint.
+PATCH_COLS = 40
+PATCH_ROWS = 48
+
+
+def padded_dims(H: int, W: int):
+    """The TPU kernels' padded atlas size (rows to 8, columns to 128)."""
+    return (max(-(-H // 8) * 8, PATCH_ROWS),
+            max(-(-W // 128) * 128, PATCH_COLS))
+
+
+def patch_origin(x, y, H: int, W: int):
+    """Patch origin (x0, y0a) [K] and patch-relative (fx, fy) [K].
+
+    x0 = clip(floor(x) - 19, 0, Wp - 40); rows start at the 8-aligned
+    y0a.  Coordinates relative to an integer origin keep the f32
+    rounding of the sample positions independent of where the keypoint
+    sits in the atlas.
+    """
+    Hp, Wp = padded_dims(H, W)
+    half = PATCH_COLS // 2 - 1
+    x0 = torch.clamp(torch.floor(x).to(torch.int64) - half, 0,
+                     max(Wp - PATCH_COLS, 0))
+    y0 = torch.clamp(torch.floor(y).to(torch.int64) - half, 0,
+                     max(Hp - PATCH_COLS, 0))
+    fx = x - x0.to(torch.float32)
+    fy = y - y0.to(torch.float32)
+    y0a = torch.clamp(torch.clamp(torch.div(y0, 8, rounding_mode="floor") * 8,
+                                  max=Hp - PATCH_ROWS), min=0)
+    fy = fy + (y0 - y0a).to(torch.float32)
+    return x0, y0a, fx, fy
+
+
+def patch_sample(img, x0, y0a, px, py):
+    """Bilinear samples [K, S] at patch-relative (px, py), clamped to
+    the patch and to the image (the TPU kernels' edge padding)."""
+    H, W = img.shape
+    px = torch.clamp(px, 0.0, PATCH_COLS - 1.0)
+    py = torch.clamp(py, 0.0, PATCH_ROWS - 1.0)
+    ixf = torch.floor(px)
+    iyf = torch.floor(py)
+    fxw = px - ixf
+    fyw = py - iyf
+    ix = ixf.to(torch.int64)
+    iy = iyf.to(torch.int64)
+    x0 = x0[:, None]
+    y0a = y0a[:, None]
+    gx0 = torch.clamp(x0 + ix, 0, W - 1)
+    gx1 = torch.clamp(x0 + torch.clamp(ix + 1, max=PATCH_COLS - 1), 0, W - 1)
+    gy0 = torch.clamp(y0a + iy, 0, H - 1)
+    gy1 = torch.clamp(y0a + torch.clamp(iy + 1, max=PATCH_ROWS - 1), 0, H - 1)
+    ux = 1.0 - fxw
+    uy = 1.0 - fyw
+    return (ux * (uy * img[gy0, gx0] + fyw * img[gy1, gx0])
+            + fxw * (uy * img[gy0, gx1] + fyw * img[gy1, gx1]))

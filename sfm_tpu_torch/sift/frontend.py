@@ -1,0 +1,190 @@
+"""SIFT frontend: base chain -> per-octave detection (K3) -> atlas ->
+fused orientation + descriptor sampling (K4) -> duplicate descriptors
+(K5) (counterpart of ``sfm_tpu/sift/frontend.py``).
+
+The port follows the JAX package's Pallas branch on every device:
+octave bases are packed into one atlas with 48-row edge-replicated
+guards, detections are capped to the ``sample_cap`` globally strongest
+slots, K4 samples every slot, and the second-peak duplicates are
+compacted and sampled by K5 into a fixed second half (slot i + K) —
+no re-compaction.  The TPU-only dispatch knobs (``use_pallas``,
+``fused_detect``, ``pyramid_pallas``, ``blur_matmul``, ``dup_split``,
+``detect_lean``, ``sample_block_k``, ``topk_block``) are resolved by
+the port from the tensors' device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from sfm_tpu.config import SiftConfig
+from sfm_tpu_torch.ops.compact import compaction_order, stable_topk_indices
+from sfm_tpu_torch.ops.sample import descriptor_sample, fused_orient_descriptor
+from sfm_tpu_torch.sift import describe, detect as detect_mod, pyramid
+
+_GUARD = 48  # vertical guard rows between octaves (>= descriptor patch)
+
+
+class Keypoints(NamedTuple):
+    """SoA keypoint set; coordinates in input-image pixels."""
+
+    x: torch.Tensor            # [K]
+    y: torch.Tensor            # [K]
+    scale: torch.Tensor        # [K]
+    sharpness: torch.Tensor    # [K]
+    edgeness: torch.Tensor     # [K]
+    orientation: torch.Tensor  # [K] degrees
+    octave: torch.Tensor       # [K] int
+    valid: torch.Tensor        # [K] bool
+
+
+class SiftResult(NamedTuple):
+    keypoints: Keypoints
+    descriptors: torch.Tensor  # [K, 128]
+
+
+def check_supported(cfg: SiftConfig):
+    """Raise for configuration knobs this port does not implement."""
+    if cfg.up_scale:
+        raise NotImplementedError(
+            "up_scale=True needs the 2x upsample kernel (scale_up), not ported")
+    if cfg.select != "topk":
+        raise NotImplementedError(f"select={cfg.select!r}: only 'topk' is ported")
+    if cfg.sample_window:
+        raise NotImplementedError(
+            "sample_window: the windowed-DMA sampling kernel is not ported "
+            "(K4 computes the same function)")
+    if cfg.sample_phases != 5:
+        raise NotImplementedError("sample_phases != 5 is a TPU profiling mode")
+    if cfg.octave_caps is not None and len(cfg.octave_caps) != cfg.num_octaves:
+        raise ValueError(
+            f"octave_caps must have num_octaves={cfg.num_octaves} entries")
+
+
+def atlas_layout(shape, cfg: SiftConfig):
+    """Static atlas layout for an input of ``shape``: (offsets, subs)."""
+    H, W = shape
+    offsets, subs = [], []
+    y = 0
+    sub = 1.0
+    for _ in range(cfg.num_octaves):
+        offsets.append(y + _GUARD)
+        subs.append(sub)
+        y += H + 2 * _GUARD
+        H, W = H // 2, W // 2
+        sub *= 2.0
+    return tuple(offsets), tuple(subs)
+
+
+def build_atlas(bases):
+    """Pack octave bases vertically with edge-replicated guard rows and
+    right-edge column padding: [sum(H_o + 96), W_0]."""
+    W0 = bases[0].shape[1]
+    rows = [F.pad(b[None, None], (0, W0 - b.shape[1], _GUARD, _GUARD),
+                  mode="replicate")[0, 0] for b in bases]
+    return torch.cat(rows, dim=0)
+
+
+def _octave_cfg(cfg: SiftConfig, o: int) -> SiftConfig:
+    if cfg.octave_caps is None:
+        return cfg
+    import dataclasses
+
+    return dataclasses.replace(cfg, max_pts_per_octave=int(cfg.octave_caps[o]))
+
+
+def detect_stage(img, cfg: SiftConfig):
+    """Base chain, per-octave detection and the atlas.  Returns
+    (atlas, detections with y in atlas rows)."""
+    bases = pyramid.base_chain(img, cfg)
+    offsets, _ = atlas_layout(img.shape, cfg)
+    dets = []
+    for o, (base, off) in enumerate(zip(bases, offsets)):
+        d = detect_mod.detect_fused(base, pyramid.octave_kernel_bank(cfg, o),
+                                    _octave_cfg(cfg, o))
+        dets.append(d._replace(y=d.y + off))
+    return build_atlas(bases), dets
+
+
+def _sample_order(valid, sharp, cap: int):
+    """Slot order for the sampling kernels: valid slots first, capped to
+    the ``cap`` globally strongest detections (ties to the lowest slot)."""
+    K_slots = valid.shape[0]
+    if not cap or cap >= K_slots:
+        return compaction_order(valid)
+    if K_slots > 16384:
+        raise NotImplementedError(
+            "sample_cap below more than 16384 detection slots (the JAX "
+            "package's rank-major interleave) is not ported")
+    strength = torch.where(valid, sharp.abs(), torch.full_like(sharp, -1.0))
+    return stable_topk_indices(strength, cap)
+
+
+def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
+    """Orientation + descriptors for every detection slot (K4, K5)."""
+    dev = atlas.device
+    x_a = torch.cat([d.x for d in dets])
+    y_a = torch.cat([d.y for d in dets])
+    sc_a = torch.cat([d.scale for d in dets])
+    sharp_a = torch.cat([d.sharpness for d in dets])
+    edge_a = torch.cat([d.edgeness for d in dets])
+    valid_a = torch.cat([d.valid for d in dets])
+    n = [d.x.shape[0] for d in dets]
+    oct_a = torch.cat([torch.full((k,), i, dtype=torch.int64, device=dev)
+                       for i, k in enumerate(n)])
+    sub_a = torch.cat([torch.full((k,), s, dtype=torch.float32, device=dev)
+                       for k, s in zip(n, subs)])
+    off_a = torch.cat([torch.full((k,), float(o), dtype=torch.float32, device=dev)
+                       for k, o in zip(n, offsets)])
+
+    order = _sample_order(valid_a, sharp_a, cfg.sample_cap)
+    x_a, y_a, sc_a, sharp_a, edge_a, valid_a, oct_a, sub_a, off_a = (
+        a[order] for a in (x_a, y_a, sc_a, sharp_a, edge_a, valid_a, oct_a,
+                           sub_a, off_a))
+    count = valid_a.sum().to(torch.int32)
+
+    d1, ori1, ori2, dup = fused_orient_descriptor(atlas, x_a, y_a, sc_a,
+                                                  count=count)
+    valid2 = dup & valid_a
+    d2 = torch.zeros_like(d1)
+    if cfg.orientation_duplicates:
+        order_d = compaction_order(valid2)
+        d2[order_d] = descriptor_sample(
+            atlas, x_a[order_d], y_a[order_d], sc_a[order_d], ori2[order_d],
+            count=valid2.sum().to(torch.int32))
+    else:
+        valid2 = torch.zeros_like(valid2)
+    valid_2 = torch.cat([valid_a, valid2])
+    desc = describe.normalize_descriptors(torch.cat([d1, d2]))
+    desc = desc * valid_2[:, None]
+
+    def two(a):  # slot i and its duplicate slot i + K
+        return torch.cat([a, a])
+
+    sub_2, off_2 = two(sub_a), two(off_a)
+    kp = Keypoints(
+        x=two(x_a) * sub_2,
+        y=(two(y_a) - off_2) * sub_2,
+        scale=two(sc_a) * sub_2,
+        sharpness=two(sharp_a),
+        edgeness=two(edge_a),
+        orientation=torch.cat([ori1, ori2]),
+        octave=two(oct_a),
+        valid=valid_2,
+    )
+    return SiftResult(keypoints=kp, descriptors=desc)
+
+
+def extract_sift(img, cfg: SiftConfig = SiftConfig()) -> SiftResult:
+    """SIFT on an [H, W] f32 image (0..255) on its own device.
+
+    Capacity: 2 * min(sample_cap, total detection slots) keypoints with
+    validity masks, descriptors L2-normalized.
+    """
+    check_supported(cfg)
+    offsets, subs = atlas_layout(tuple(img.shape), cfg)
+    atlas, dets = detect_stage(img, cfg)
+    return sample_stage(atlas, offsets, subs, dets, cfg)

@@ -1,0 +1,141 @@
+"""Synthetic textured two-view pair with known pose (numpy only).
+
+Four textured planes at different depths (a tilted background, a floor
+whose depth grows up the image, a middle slab and a near plane) are
+ray-cast from two pinhole
+cameras with the same intrinsics K: camera 1 at the origin and camera
+2 at (R, t), with X_cam2 = R X_cam1 + t.  Each plane carries its own
+band-limited noise texture (blobs at several scales, which is what the
+DoG detector responds to), fixed in plane coordinates, so both views
+see the same surface texture and every detection has a true
+correspondence.  The 0.5-unit baseline against depths of 4 to 12
+gives 30-100 px of parallax at full size, and no single plane holds
+most of the matches, so E is well posed.
+
+Imports neither jax nor torch, so the JAX tests, the port's tests and
+the GPU smoke run share it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _rot(axis, angle):
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    Kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                   [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * Kx + (1 - np.cos(angle)) * (Kx @ Kx)
+
+
+def _texture(rng, n=1024):
+    """[n, n] noise texture in 0..255 with blobs at 3 scales (texels)."""
+    f = np.fft.fftfreq(n)
+    f2 = f[:, None] ** 2 + f[None, :] ** 2
+    out = np.zeros((n, n))
+    for sigma, weight in ((1.6, 1.0), (3.5, 0.8), (8.0, 0.6)):
+        spec = np.fft.fft2(rng.normal(size=(n, n)))
+        band = np.real(np.fft.ifft2(spec * np.exp(-2 * np.pi ** 2 * sigma ** 2 * f2)))
+        out += weight * band / band.std()
+    out = out / out.std()
+    return np.clip(128.0 + 45.0 * out, 0.0, 255.0)
+
+
+def _lookup(tex, a, b, texel):
+    """Bilinear texture lookup at plane coords (a, b) in world units;
+    the texture is centred on the plane's anchor point and wraps."""
+    n = tex.shape[0]
+    u = a / texel + n / 2
+    v = b / texel + n / 2
+    u0 = np.floor(u)
+    v0 = np.floor(v)
+    fu = u - u0
+    fv = v - v0
+    i0 = u0.astype(np.int64) % n
+    j0 = v0.astype(np.int64) % n
+    i1 = (i0 + 1) % n
+    j1 = (j0 + 1) % n
+    return ((1 - fv) * ((1 - fu) * tex[j0, i0] + fu * tex[j0, i1])
+            + fv * ((1 - fu) * tex[j1, i0] + fu * tex[j1, i1]))
+
+
+def _planes(rng, f):
+    """(anchor, normal, u_axis, v_axis, half_extent or None, texture,
+    texel) per plane; the texel is ~1 px at the plane's depth."""
+    specs = [
+        # background: everywhere, tilted about y
+        ((0.0, 0.0, 12.0), _rot([0, 1, 0], 0.25) @ np.array([0, 0, -1.0]), None),
+        # floor below the cameras: depth grows continuously up the image
+        ((0.0, 1.6, 7.0), np.array([0.0, -1.0, 0.0]), (6.0, 6.0)),
+        # middle slab on the left
+        ((-1.3, -0.3, 7.0), _rot([0, 1, 0], -0.5) @ np.array([0, 0, -1.0]),
+         (1.6, 1.6)),
+        # near plane on the right
+        ((1.1, -0.4, 4.5), _rot([1, 0.3, 0], 0.35) @ np.array([0, 0, -1.0]),
+         (0.9, 0.8)),
+    ]
+    planes = []
+    for anchor, normal, extent in specs:
+        anchor = np.asarray(anchor)
+        normal = normal / np.linalg.norm(normal)
+        up = [0.0, 0.0, 1.0] if abs(normal[1]) > 0.9 else [0.0, 1.0, 0.0]
+        u_axis = np.cross(up, normal)
+        u_axis /= np.linalg.norm(u_axis)
+        v_axis = np.cross(normal, u_axis)
+        texel = anchor[2] / f
+        planes.append((anchor, normal, u_axis, v_axis, extent,
+                       _texture(rng), texel))
+    return planes
+
+
+def _render(planes, K, R, t, H, W):
+    """Ray-cast the planes from camera (R, t): [H, W] float64."""
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    rays_c = np.stack([u, v, np.ones_like(u)], -1) @ np.linalg.inv(K).T
+    rays = rays_c @ R                   # camera -> world: R^T d
+    C = -R.T @ t
+    depth = np.full((H, W), np.inf)
+    img = np.zeros((H, W))
+    for anchor, normal, u_axis, v_axis, extent, tex, texel in planes:
+        den = rays @ normal
+        s = ((anchor - C) @ normal) / np.where(np.abs(den) < 1e-12, 1e-12, den)
+        X = C + s[..., None] * rays
+        a = (X - anchor) @ u_axis
+        b = (X - anchor) @ v_axis
+        hit = (s > 0) & (s < depth)
+        if extent is not None:
+            hit &= (np.abs(a) <= extent[0]) & (np.abs(b) <= extent[1])
+        depth = np.where(hit, s, depth)
+        img = np.where(hit, _lookup(tex, a, b, texel), img)
+    return img
+
+
+def synthetic_pair(height: int = 576, width: int = 720, seed: int = 0):
+    """Render the pair.  Returns dict with img1, img2 ([H, W] float32,
+    0..255), K [3, 3], R [3, 3], t [3] (unit; X2 = R X1 + t up to the
+    scale of t) as float32 arrays."""
+    rng = np.random.default_rng(seed)
+    f = 1.1 * width
+    K = np.array([[f, 0.0, width / 2.0], [0.0, f, height / 2.0], [0, 0, 1.0]])
+    planes = _planes(rng, f)
+    R = _rot([0.1, 1.0, -0.05], np.deg2rad(-3.0))
+    t = np.array([-0.5, 0.06, 0.12])
+    img1 = _render(planes, K, np.eye(3), np.zeros(3), height, width)
+    img2 = _render(planes, K, R, t, height, width)
+    noise = np.random.default_rng(seed + 1)
+    img1 = np.clip(img1 + noise.normal(scale=0.5, size=img1.shape), 0, 255)
+    img2 = np.clip(img2 + noise.normal(scale=0.5, size=img2.shape), 0, 255)
+    out = {"img1": img1, "img2": img2, "K": K, "R": R,
+           "t": t / np.linalg.norm(t)}
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def pose_errors_deg(R_est, t_est, R_gt, t_gt):
+    """(rotation angle error, translation direction error) in degrees."""
+    Rd = np.asarray(R_est, np.float64) @ np.asarray(R_gt, np.float64).T
+    rot = np.degrees(np.arccos(np.clip((np.trace(Rd) - 1) / 2, -1.0, 1.0)))
+    a = np.asarray(t_est, np.float64)
+    b = np.asarray(t_gt, np.float64)
+    c = a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-12)
+    return float(rot), float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))

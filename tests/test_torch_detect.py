@@ -1,0 +1,111 @@
+"""Parity: the port's image ops, base chain and detection (K3's plain
+version + top-k selection) against the JAX package.
+
+The JAX side runs ``pallas_detect.detect_maps`` in interpret mode.
+Tolerances: blurs agree to f32 rounding of 0..255 intensities (1e-3
+absolute); detection decisions compare DoG values against thresholds,
+so a candidate can flip where a value sits within rounding of a gate —
+counts are held within max(2, 1%) and positions to >= 95% overlap,
+the bar of the JAX package's own interpret-mode parity tests.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from synthetic_pair import synthetic_pair
+from sfm_tpu.config import SiftConfig
+from sfm_tpu.ops import image as jimage
+from sfm_tpu.ops.pallas_detect import detect_maps as jdetect_maps
+from sfm_tpu.sift import detect as jdetect
+from sfm_tpu.sift import pyramid as jpyramid
+from sfm_tpu_torch.ops import image
+from sfm_tpu_torch.ops.detect import detect_maps, detect_maps_plain
+from sfm_tpu_torch.sift import detect, pyramid
+
+T = torch.as_tensor
+CFG = SiftConfig(num_octaves=3, max_pts_per_octave=256)
+
+
+@pytest.fixture(scope="module")
+def img():
+    return synthetic_pair(96, 160, seed=2)["img1"]
+
+
+def test_kernels_and_base_chain_match_jax(img):
+    for o in range(CFG.num_octaves):
+        np.testing.assert_array_equal(pyramid.octave_kernel_bank(CFG, o),
+                                      jpyramid.octave_kernel_bank(CFG, o))
+    bj = [np.array(b) for b in jpyramid.base_chain(jnp.asarray(img), CFG)]
+    bt = [b.numpy() for b in pyramid.base_chain(T(img), CFG)]
+    assert [b.shape for b in bt] == [b.shape for b in bj]
+    for a, b in zip(bt, bj):
+        np.testing.assert_allclose(a, b, atol=1e-3)
+
+
+def test_bilinear_sample_matches_jax(rng, img):
+    x = rng.uniform(-3, 165, 300).astype(np.float32)
+    y = rng.uniform(-3, 100, 300).astype(np.float32)
+    vj = np.array(jimage.bilinear_sample(*map(jnp.asarray, (img, x, y))))
+    vt = image.bilinear_sample(*map(T, (img, x, y))).numpy()
+    np.testing.assert_allclose(vt, vj, atol=1e-3)
+
+
+def test_refine_from_coeffs_matches_jax(rng):
+    c = rng.normal(size=(10, 500)).astype(np.float32)
+    c[4:7] += 2.0 * np.sign(c[4:7])   # mostly well-conditioned Hessians
+    oj = jdetect.refine_from_coeffs(*map(jnp.asarray, c))
+    ot = detect.refine_from_coeffs(*map(T, c))
+    for a, b in zip(ot, oj):
+        np.testing.assert_allclose(a.numpy(), np.array(b), rtol=1e-4, atol=1e-5)
+
+
+def _positions(d):
+    v = d.valid.numpy() if isinstance(d.valid, torch.Tensor) else np.array(d.valid)
+    return {(round(float(x), 2), round(float(y), 2))
+            for x, y, ok in zip(np.asarray(d.x), np.asarray(d.y), v) if ok}
+
+
+def test_detect_maps_plain_matches_pallas_interpret(img):
+    base = pyramid.base_chain(T(img), CFG)[0].numpy()
+    taps = pyramid.octave_kernel_bank(CFG, 0)
+    rj, aj = jdetect_maps(
+        jnp.asarray(base), taps=tuple(tuple(float(v) for v in r) for r in taps),
+        n_scales=CFG.num_scales, thresh=float(CFG.thresh),
+        edge_limit=float(CFG.edge_limit), scale_gate=0.0, interpret=True)
+    rt, at = detect_maps_plain(T(base), taps, CFG.thresh, CFG.edge_limit)
+    rj, aj = np.array(rj), np.array(aj)
+    rt, at = rt.numpy(), at.numpy()
+    cand_j, cand_t = rj > 0, rt > 0
+    n = max(cand_j.sum(), 1)
+    assert cand_j.sum() > 50
+    assert (cand_j != cand_t).sum() <= max(2, 0.01 * n)
+    both = cand_j & cand_t & (aj[0] == at[0])
+    # DoG values are differences of near-equal blurs: f32 rounding of
+    # the 0..255 blur sums leaves ~1e-4 relative error on them.
+    np.testing.assert_allclose(rt[both], rj[both], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(at[:, both], aj[:, both], rtol=1e-3, atol=1e-4)
+    # The dispatching wrapper takes the plain version for CPU tensors.
+    r2, a2 = detect_maps(T(base), taps, CFG.thresh, CFG.edge_limit)
+    np.testing.assert_array_equal(r2.numpy(), rt)
+
+    dj = jdetect.select_from_maps(jnp.asarray(rj), jnp.asarray(aj), CFG)
+    dt = detect.select_from_maps(T(rt), T(at), CFG)
+    nj, nt = int(np.array(dj.valid).sum()), int(dt.valid.sum())
+    assert abs(nt - nj) <= max(2, 0.01 * nj)
+    pj, pt = _positions(dj), _positions(dt)
+    assert len(pj & pt) >= 0.95 * len(pj)
+
+
+def test_unsupported_detect_knobs_raise(img):
+    base = T(img)
+    taps = pyramid.octave_kernel_bank(CFG, 0)
+    for bad in (dict(select="approx"), dict(select="compact"),
+                dict(lowest_scale=1.0)):
+        with pytest.raises(NotImplementedError):
+            detect.detect_fused(base, taps, dataclasses.replace(CFG, **bad))
+    with pytest.raises(NotImplementedError):
+        pyramid.base_chain(base, dataclasses.replace(CFG, up_scale=True))
