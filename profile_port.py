@@ -6,13 +6,14 @@ Run from the repository root on a machine with an NVIDIA card:
 
     python3 profile_port.py [--pairs 5]
 
-Drives ``sfm_tpu_torch`` with ``chip_smoke.py``'s slice config on the
-720 x 576 synthetic pair (``tests/synthetic_pair.py``) and prints, per
-stage (per-image detect and sample, match, geometry), the median
-host-clock milliseconds around
-synchronized calls; then profiles one pair with ``torch.profiler`` and
-prints the device busy share, the number of kernel launches per stage
-and the top operators by device time; a JSON summary goes to
+Drives ``sfm_tpu_torch`` with ``chip_smoke.py``'s ``slice_config``
+(bench.py's own config) on the 720 x 576 synthetic pair
+(``tests/synthetic_pair.py``) and prints, per stage (per-image detect,
+which includes the K1/K2 base chain, and sample, match, geometry), the
+median host-clock milliseconds around synchronized calls; then
+profiles one pair with ``torch.profiler`` and prints the device busy
+share, the number of kernel launches per stage and the top operators
+by device time; a JSON summary goes to
 ``chiprun_out/profile_port.json``.
 """
 

@@ -4,9 +4,10 @@ The system has no learned weights: what crosses between ``sfm_tpu``
 and ``sfm_tpu_torch`` is the configuration (the shared dataclasses of
 ``sfm_tpu.config``) and the pipeline's intermediate state — detections,
 keypoints / SIFT results, matches, correspondences ``(uv1, uv2, mask)``,
-RANSAC minimal-set indices and two-view results.  The JAX side hands
-these over as numpy arrays (``np.asarray`` of its outputs), so this
-module needs no jax: it maps numpy containers to port tensors and back.
+RANSAC minimal-set indices, homography fits and two-view results.  The
+JAX side hands these over as numpy arrays (``np.asarray`` of its
+outputs), so this module needs no jax: it maps numpy containers to port
+tensors and back.
 
 Field names are identical on both sides, so a JAX NamedTuple converts
 to the port's class of the same name, and ``to_numpy`` of a port result
@@ -20,13 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sfm_tpu_torch.geometry.homography import HomographyResult
 from sfm_tpu_torch.models.two_view import TwoViewResult
 from sfm_tpu_torch.sift.detect import Detections
 from sfm_tpu_torch.sift.frontend import Keypoints, SiftResult
 from sfm_tpu_torch.sift.match import Matches
 
 _PORT_TYPES = {cls.__name__: cls for cls in
-               (Detections, Keypoints, SiftResult, Matches, TwoViewResult)}
+               (Detections, Keypoints, SiftResult, Matches, HomographyResult,
+                TwoViewResult)}
 
 
 def _is_namedtuple(obj) -> bool:

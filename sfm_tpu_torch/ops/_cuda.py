@@ -33,13 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> launches since the last reset, one entry per kernel wrapper.
-LAUNCHES = {"detect_maps": 0, "fused_orient_descriptor": 0,
-            "descriptor_sample": 0, "match_top2": 0}
+LAUNCHES = {"blur9": 0, "scale_down": 0, "scale_up": 0, "detect_maps": 0,
+            "fused_orient_descriptor": 0, "descriptor_sample": 0,
+            "match_top2": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
+    # src, H, W, taps (host float array), n_taps, dst, stream
+    "sfm_blur": (_P, _I, _I, _P, _I, _P, _P),
+    "sfm_scale_down": (_P, _I, _I, _P, _I, _P, _P),
+    # src, H, W, dst, stream
+    "sfm_scale_up": (_P, _I, _I, _P, _P),
     # base, taps, n_planes, H, W, thresh, edge_limit, resp, aux, stream
     "sfm_detect_maps": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
     # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, wsp,

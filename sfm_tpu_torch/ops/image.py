@@ -1,20 +1,17 @@
-"""Dense image ops: Gaussian taps, separable edge-clamped blur,
-blur + 2x decimation and bilinear sampling (counterpart of
-``sfm_tpu/ops/image.py``).
+"""Dense image ops: Gaussian taps, bilinear sampling and the sampling
+kernels' patch geometry (counterpart of ``sfm_tpu/ops/image.py``).
 
-The blurs are depthwise ``conv2d`` calls on an edge-replicated pad.
-On the card they go through cuDNN, whose float32 default is TF32;
-every caller runs under :func:`~sfm_tpu_torch.utils.precision.
-f32_precision` because these blurs feed the DoG threshold.
+The base chain's blur, decimation and upsample are K1, K2 and K7 in
+``sfm_tpu_torch/ops/pyramid.py``: explicit f32 multiply-adds in the
+kernels and in their plain versions, so no convolution (cuDNN, TF32 by
+default on the card) is left on the frontend's path and nothing here
+needs the TF32 pin of ``sfm_tpu_torch/utils/precision.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
-
-from sfm_tpu_torch.utils.precision import f32_matmul
 
 
 def gaussian_kernel(radius: int, variance: float) -> np.ndarray:
@@ -26,23 +23,6 @@ def gaussian_kernel(radius: int, variance: float) -> np.ndarray:
         k = np.exp(-(j * j) / (2.0 * variance))
     k = k / k.sum()
     return k.astype(np.float32)
-
-
-@f32_matmul
-def blur(img, taps):
-    """Separable blur of [H, W] with 1-D taps (numpy or tensor), edge
-    clamped: along W first, then along H."""
-    taps = torch.as_tensor(np.asarray(taps, np.float32), device=img.device)
-    r = taps.shape[0] // 2
-    x = F.pad(img[None, None], (r, r, 0, 0), mode="replicate")
-    x = F.conv2d(x, taps.view(1, 1, 1, -1))
-    x = F.pad(x, (0, 0, r, r), mode="replicate")
-    return F.conv2d(x, taps.view(1, 1, -1, 1))[0, 0]
-
-
-def scale_down(img, variance: float = 0.5):
-    """5-tap Gaussian blur + 2x decimation (one octave step)."""
-    return blur(img, gaussian_kernel(2, variance))[0::2, 0::2].contiguous()
 
 
 def bilinear_sample(img, x, y):

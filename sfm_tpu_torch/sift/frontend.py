@@ -1,13 +1,15 @@
-"""SIFT frontend: base chain -> per-octave detection (K3) -> atlas ->
-fused orientation + descriptor sampling (K4) -> duplicate descriptors
-(K5) (counterpart of ``sfm_tpu/sift/frontend.py``).
+"""SIFT frontend: base chain ([K7,] K1, K2) -> per-octave detection
+(K3) -> atlas -> fused orientation + descriptor sampling (K4) ->
+duplicate descriptors (K5) (counterpart of ``sfm_tpu/sift/frontend.py``).
 
 The port follows the JAX package's Pallas branch on every device:
 octave bases are packed into one atlas with 48-row edge-replicated
 guards, detections are capped to the ``sample_cap`` globally strongest
 slots, K4 samples every slot, and the second-peak duplicates are
 compacted and sampled by K5 into a fixed second half (slot i + K) —
-no re-compaction.  The TPU-only dispatch knobs (``use_pallas``,
+no re-compaction.  With ``up_scale`` the image is upsampled 2x
+before the prefilter and keypoints are halved back to input pixels at
+the end.  The TPU-only dispatch knobs (``use_pallas``,
 ``fused_detect``, ``pyramid_pallas``, ``blur_matmul``, ``dup_split``,
 ``detect_lean``, ``sample_block_k``, ``topk_block``) are resolved by
 the port from the tensors' device.
@@ -48,9 +50,6 @@ class SiftResult(NamedTuple):
 
 def check_supported(cfg: SiftConfig):
     """Raise for configuration knobs this port does not implement."""
-    if cfg.up_scale:
-        raise NotImplementedError(
-            "up_scale=True needs the 2x upsample kernel (scale_up), not ported")
     if cfg.select != "topk":
         raise NotImplementedError(f"select={cfg.select!r}: only 'topk' is ported")
     if cfg.sample_window:
@@ -65,8 +64,11 @@ def check_supported(cfg: SiftConfig):
 
 
 def atlas_layout(shape, cfg: SiftConfig):
-    """Static atlas layout for an input of ``shape``: (offsets, subs)."""
+    """Static atlas layout for an input of ``shape``: (offsets, subs).
+    Octave o is ``H // 2**o`` rows high (``pyramid.base_chain``)."""
     H, W = shape
+    if cfg.up_scale:
+        H, W = 2 * H, 2 * W
     offsets, subs = [], []
     y = 0
     sub = 1.0
@@ -175,6 +177,9 @@ def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
         octave=two(oct_a),
         valid=valid_2,
     )
+    if cfg.up_scale:
+        # Back to input-image pixels (reference RescalePositions(0.5)).
+        kp = kp._replace(x=kp.x * 0.5, y=kp.y * 0.5, scale=kp.scale * 0.5)
     return SiftResult(keypoints=kp, descriptors=desc)
 
 

@@ -1,10 +1,15 @@
 """Octave bases and per-octave blur taps (counterpart of
 ``sfm_tpu/sift/pyramid.py``: ``octave_base_blurs``,
-``octave_kernel_bank``, ``lowpass`` and the conv path of ``base_chain``).
+``octave_kernel_bank``, ``lowpass`` and ``base_chain_pallas``).
 
-The base chain stays plain PyTorch in this port, as the JAX package
-leaves it to XLA when ``pyramid_pallas=False``; its Pallas kernels
-(``blur9``, ``scale_down``) are not ported yet.
+The base chain always takes the JAX package's Pallas route: K7
+``scale_up`` when ``up_scale``, K1 ``blur9`` (the ``init_blur``
+prefilter), then K2 ``scale_down`` once per further octave
+(``sfm_tpu_torch/ops/pyramid.py``).  ``pyramid_pallas`` and
+``blur_matmul`` are TPU dispatch knobs: CUDA tensors always go through
+the kernels, CPU tensors through their plain versions.  Octave o has
+shape ``[H_0 // 2**o, W_0 // 2**o]`` (floor at every step), which is
+what ``frontend.atlas_layout`` assumes.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 
 from sfm_tpu.config import SiftConfig
 from sfm_tpu_torch.ops import image as imops
+from sfm_tpu_torch.ops import pyramid as pyr
 
 
 def octave_base_blurs(num_octaves: int) -> list:
@@ -39,20 +45,20 @@ def octave_kernel_bank(cfg: SiftConfig, octave_index: int) -> np.ndarray:
 
 
 def lowpass(img, cfg: SiftConfig):
-    """Prefilter with sigma = init_blur."""
+    """Prefilter with sigma = init_blur (K1)."""
     sigma = max(cfg.init_blur, 1e-3)
-    return imops.blur(img, imops.gaussian_kernel(cfg.lowpass_radius, sigma * sigma))
+    return pyr.blur9(img, imops.gaussian_kernel(cfg.lowpass_radius, sigma * sigma))
 
 
 def base_chain(img, cfg: SiftConfig) -> list:
-    """Octave base images: lowpass prefilter, then the scale-down descent."""
+    """Octave base images: [K7 2x upsample,] K1 prefilter, then
+    ``num_octaves - 1`` K2 blur + decimate steps."""
     if cfg.up_scale:
-        raise NotImplementedError(
-            "up_scale=True needs the 2x upsample kernel (scale_up), which is "
-            "not ported yet")
+        img = pyr.scale_up(img)
     base = lowpass(img, cfg)
     bases = [base]
+    sd = imops.gaussian_kernel(2, 0.5)
     for _ in range(cfg.num_octaves - 1):
-        base = imops.scale_down(base, 0.5)
+        base = pyr.scale_down(base, sd)
         bases.append(base)
     return bases

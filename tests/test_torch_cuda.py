@@ -5,12 +5,14 @@ JAX-importing conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: K3 and K5 evaluate the same IEEE roundings as their plain
-versions (bit-exact expected; held to 1e-4 / 1e-5); K4's histogram sums
+Tolerances: K1, K2, K7, K3 and K5 evaluate the same IEEE roundings as
+their plain versions (bit-exact expected; held to 1e-4 / 1e-5); K4's histogram sums
 in another order, so a near-tie peak may swap on rare rows (>= 99% of
 rows within 1e-3); K6's bf16 products accumulate in another order
 (1e-5, argmax agreement >= 99.9%).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -31,6 +33,28 @@ def dev():
 @pytest.fixture(scope="module")
 def pair():
     return synthetic_pair(192, 256, seed=0)
+
+
+@pytest.mark.parametrize("shape", [(576, 720), (575, 719), (960, 1280), (5, 3)])
+def test_pyramid_kernels_match_plain(dev, shape):
+    from sfm_tpu_torch.ops import _cuda, pyramid as pyr
+    from sfm_tpu_torch.ops.image import gaussian_kernel
+
+    rng = np.random.default_rng(4)
+    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+    lp, sd = gaussian_kernel(4, 1.0), gaussian_kernel(2, 0.5)
+    _cuda.reset_launches()
+    out = pyr.blur9(img, lp)
+    assert float((out - pyr.blur9_plain(img, lp)).abs().max()) <= 1e-4
+    down = pyr.scale_down(img, sd)
+    assert tuple(down.shape) == (shape[0] // 2, shape[1] // 2)
+    assert float((down - pyr.scale_down_plain(img, sd)).abs().max()) <= 1e-4
+    up = pyr.scale_up(img)
+    assert tuple(up.shape) == (2 * shape[0], 2 * shape[1])
+    assert float((up - pyr.scale_up_plain(img)).abs().max()) <= 1e-4
+    torch.cuda.synchronize()
+    assert (_cuda.LAUNCHES["blur9"], _cuda.LAUNCHES["scale_down"],
+            _cuda.LAUNCHES["scale_up"]) == (1, 1, 1)
 
 
 def test_detect_kernel_matches_plain(dev, pair):
@@ -104,9 +128,15 @@ def test_wrappers_check_their_inputs(dev):
     from sfm_tpu_torch.ops.match import match_top2
     from sfm_tpu_torch.ops.sample import descriptor_sample
 
+    from sfm_tpu_torch.ops.pyramid import blur9, scale_down
+
     d = torch.zeros((8, 64), device=dev)
     with pytest.raises(ValueError):
         match_top2(d, d)                          # not 128-D
+    with pytest.raises(ValueError):
+        blur9(d.double(), [1.0])                  # wrong dtype
+    with pytest.raises(ValueError):
+        scale_down(d[:1], [1.0])                  # no 2x decimation
     atlas = torch.zeros((64, 64), device=dev)
     xs = torch.zeros(8, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
@@ -129,6 +159,12 @@ def test_pipeline_on_cuda_goes_through_every_kernel(dev, pair):
         res = two_view.run_two_view(img1, img2, K, cfg, seed=seed)
         errs.append(pose_errors_deg(res.R.cpu().numpy(), res.t.cpu().numpy(),
                                     pair["R"], pair["t"]))
-    assert all(n > 0 for n in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    assert _cuda.LAUNCHES["scale_up"] == 0, _cuda.LAUNCHES
+    assert all(n > 0 for k, n in _cuda.LAUNCHES.items() if k != "scale_up"), \
+        _cuda.LAUNCHES
     rot, tdir = np.median(np.array(errs), axis=0)
     assert rot < 1.0 and tdir < 5.0, errs
+    from sfm_tpu_torch.sift import frontend
+
+    frontend.extract_sift(img1, dataclasses.replace(cfg.sift, up_scale=True))
+    assert _cuda.LAUNCHES["scale_up"] == 1

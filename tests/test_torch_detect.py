@@ -107,5 +107,3 @@ def test_unsupported_detect_knobs_raise(img):
                 dict(lowest_scale=1.0)):
         with pytest.raises(NotImplementedError):
             detect.detect_fused(base, taps, dataclasses.replace(CFG, **bad))
-    with pytest.raises(NotImplementedError):
-        pyramid.base_chain(base, dataclasses.replace(CFG, up_scale=True))

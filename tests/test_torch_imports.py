@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(up_scale=True), dict(select="approx"), dict(select="compact"),
+    dict(select="approx"), dict(select="compact"),
     dict(sample_window=True), dict(sample_window="vmem"),
     dict(sample_phases=4),
 ])
@@ -61,7 +61,8 @@ def test_kernel_argument_checks_reject_cpu_tensors():
     # that guard the CUDA launch refuse anything else.
     with pytest.raises(ValueError):
         _cuda.require(torch.zeros(3), "x", torch.float32, (3,))
-    assert set(_cuda.LAUNCHES) == {"detect_maps", "fused_orient_descriptor",
+    assert set(_cuda.LAUNCHES) == {"blur9", "scale_down", "scale_up",
+                                   "detect_maps", "fused_orient_descriptor",
                                    "descriptor_sample", "match_top2"}
 
 

@@ -1,6 +1,6 @@
 """The whole slice: the port's two-view pipeline against the JAX
-package's slice config (bench config with pyramid_pallas=False,
-blur_matmul=False, Pallas kernels in interpret mode) at 192 x 256 on
+package's bench route (the bench config's Pallas branch, base chain
+included: pyramid_pallas=True, kernels in interpret mode) at 192 x 256 on
 the synthetic textured pair, with stage outputs handed across through
 ``sfm_tpu_torch.interop`` in both directions.
 
@@ -34,8 +34,7 @@ from sfm_tpu_torch.sift import frontend
 # takes the smallest block, 8.
 CFG = PipelineConfig(
     sift=SiftConfig(num_octaves=3, max_pts_per_octave=256, use_pallas=True,
-                    fused_detect=True, pyramid_pallas=False, blur_matmul=False,
-                    sample_block_k=8),
+                    fused_detect=True, pyramid_pallas=True, sample_block_k=8),
     match=MatchConfig(use_pallas=True),
     ransac=RansacConfig(n_hyps=256, threshold=3e-6, chunk=256),
     tvote_rounds=0,
