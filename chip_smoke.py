@@ -13,37 +13,57 @@ Phases, each of which fails the run on any error:
 3. kernels at the bench path's shapes: each kernel against its plain
    PyTorch version on the same card tensors (K1 on a 576 x 720 image,
    K2 on its 4 octave descents plus an odd 575 x 719 image, K3 on the 5
-   octave bases, K4 on the 2,560 capped slots, K5 on their duplicate
-   subset, K6 at 5,120 x 5,120 x 128), with CUDA-event times for both;
+   octave bases, K4, K8 and K9 on the 2,560 capped slots, K9 also
+   against K4's own output, K5 on their duplicate subset, K6 at
+   5,120 x 5,120 x 128), with CUDA-event times for both, each kernel's
+   bound on the card, and, where one PyTorch call computes the same
+   function, that call's time;
 4. the bench path: ``two_view_pipeline`` with bench.py's own config
    (``slice_config``) on a 720 x 576 synthetic textured pair
    (``tests/synthetic_pair.py``) over 8 RANSAC seeds, gated against the
    JAX package's numbers on the same pair and the rendered ground-truth
-   pose; every kernel but K7 must have launched in that run;
+   pose;
 5. the up-scale path: tools/bench_upscale.py's up_t2.0 config
    (``upscale_config``: a 1280 x 960 input up-scaled to a 2560 x 1920
    base) on the rotation-only synthetic pair (``rotation_pair``):
    extraction of both images, matching, then bench_upscale's H-fit
    (``ransac_homography`` + ``improve_homography`` + the 3 px count),
    gated against the JAX package's features, candidates and H-fit on
-   the same pair and against the pair's exact homography; all seven
-   kernels must have launched in that run.  Then every kernel against
-   its plain version on that run's inputs, at its shapes (K7 on the two
-   960 x 1280 images, K1 on the 1920 x 2560 base, K2 on its 4
-   descents, K3 on its 5 octave bases, K4 on the 11,776 capped slots
-   of the 4,200 x 2,560 atlas, K5 on their duplicates, K6 on the run's
-   own 23,552 x 23,552 x 128 descriptor sets), with the tolerances of
-   phase 3;
-6. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
+   the same pair and against the pair's exact homography.  Then every
+   kernel against its plain version on that run's inputs, at its shapes
+   (K7 on the two 960 x 1280 images, K1 on the 1920 x 2560 base, K2 on
+   its 4 descents, K3 on its 5 octave bases, K4, K8 and K9 on the
+   11,776 capped slots of the 4,200 x 2,560 atlas, K5 on their
+   duplicates, K6 on the run's own 23,552 x 23,552 x 128 descriptor
+   sets), with the tolerances of phase 3;
+6. the module API at the bench path's width: ``assign_orientations``
+   (K8) and ``extract_descriptors(valid=...)`` (K5) on the atlas and
+   every detection slot of a real ``detect_stage`` of the 576 x 720
+   image, gated against K4's (and K5's) output on the same keypoints;
+   then K8 and K5 against their plain versions on the 5,120 compacted
+   slots this phase gave them, with the tolerances of phase 3;
+7. the up-scale path again with ``sample_window=True`` (K9 in place of
+   K4): features, matches, H-fit and H error must equal phase 5's;
+8. the command-line driver: the synthetic pair written as PGMs and
+   ``sfm_tpu_torch.cli.main(["reconstruct", ...])`` in-process at the
+   CLI's defaults (the translation re-vote on) over 8 seeds, gated
+   against the JAX CLI's numbers on the same PGMs
+   (``tests/jax_cli_reference.py``) and the rendered pose; then
+   ``sift --up-scale --homography`` on the rotation pair's PGMs; then
+   ``run_two_view`` at ``PipelineConfig()`` as it stands;
+9. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
    names a directory holding ``viff.000.ppm`` and ``viff.001.ppm``
    (bench.py's fixture); skipped, and said so, when it is unset or the
    files are absent.
 
-The last lines of standard output are the kernels' JSON record (each
-kernel's ``launches`` summed over the runs of phases 4 and 5, its
-``max_abs_err`` the largest of phases 3 and 5, its times phase 3's, or
-phase 5's for K7), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Each of the main paths (phases 4 to 8) runs with every launch count set
+to 0 just before it and read just after; each must launch every kernel
+it goes through, and together they launch all nine.  The last lines of
+standard output are the kernels' JSON record (each kernel's
+``launches`` summed over those paths, its ``max_abs_err`` the largest
+of phases 3, 5 and 6, its times and bound phase 3's, or phase 5's for
+K7 and phase 6's for K8),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 A detailed JSON report goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -83,6 +103,60 @@ JAX_UPSCALE = {"n1": 10444, "n2": 10935, "candidates": 296, "numfit": 6597}
 MAX_H_MEDIAN_PX = 0.35
 MAX_H_MAX_PX = 0.93
 
+# The JAX package's CLI (`python -m sfm_tpu reconstruct a.pgm b.pgm
+# --focal 792 --seed s`, its defaults otherwise: tvote_rounds=1,
+# n_hyps=1024, threshold=3e-6) on synthetic_pair(576, 720, seed=0)
+# written as 8-bit PGMs, seeds 0-7, measured on CPU by
+# tests/jax_cli_reference.py: median matches 1867, inliers 1730, valid
+# points 1730, 0.1424 px; worst seed 0.065 deg rotation and 0.276 deg
+# translation-direction error.  The port's CLI must reach 90% of each
+# count, px <= JAX / 0.9, and the pose bounds above on every seed.
+JAX_CLI_MEDIANS = {"matches": 1867.0, "inliers": 1730.0, "valid": 1730.0,
+                   "px": 0.1424}
+# The JAX package's run_two_view at PipelineConfig() as it stands (4,096
+# hypotheses at 1e-6, tvote_rounds=1), seed 0, on the float pair, by the
+# same script: 1869 matches, 1600 inliers, 1600 valid points, 0.1028 px,
+# 0.0 / 0.121 deg pose error.  Same gates as above.
+JAX_DEFAULT = {"matches": 1869.0, "inliers": 1600.0, "valid": 1600.0, "px": 0.1028}
+# The CLI's homography is its RANSAC fit alone (no improve_homography):
+# held to H_gt more loosely than the up-scale path's H-fit.
+MAX_CLI_H_MEDIAN_PX = 1.0
+
+# One NVIDIA H100 SXM (NVIDIA's data sheet; dense rates at 700 W): the
+# least time a kernel could take is the larger of its bytes over the
+# memory rate and its operations over the peak rate for their type.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12          # float32 outside the tensor cores
+BF16_FLOPS = 989e12        # bf16 tensor cores, f32 accumulation
+
+# Operations per live keypoint of the sampling kernels, counted from
+# the source (a transcendental, a compare or a floor counts as one): a
+# bilinear sample is 13 (2 fractions, 2 complements, 6 products, 3
+# sums); an orientation sample 4 of them plus 12 (differences,
+# magnitude, Gaussian weight, bin); a descriptor sample 4 plus 28
+# (rotated position, differences, magnitude, window, angle bin) and its
+# trilinear binning 2 angle bins x 4 cells x 3; the smoothing and peak
+# search ~11 per bin.
+_BILINEAR = 13
+ORI_OPS = 121 * (4 * _BILINEAR + 12)
+DESC_OPS = 256 * (4 * _BILINEAR + 28) + 256 * 2 * 4 * 3
+PEAK_OPS = 32 * 11
+
+# Where each kernel's time and bound are taken: the bench path's shapes,
+# unless the bench path does not launch it.
+TIMED_AT = {"scale_up": "upscale", "orientation_histogram_sample": "module_api"}
+
+# Kernels each main path must launch (phases 4 to 8).
+_BASE = {"blur9", "scale_down", "detect_maps", "descriptor_sample"}
+PATH_KERNELS = {
+    "bench": _BASE | {"fused_orient_descriptor", "match_top2"},
+    "upscale": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
+    "module_api": _BASE | {"orientation_histogram_sample"},
+    "upscale_window": _BASE | {"scale_up", "fused_orient_descriptor_win",
+                               "match_top2"},
+    "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
+}
+
 
 def log(*a):
     print(*a, flush=True)
@@ -111,6 +185,56 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float, peak: float = F32_FLOPS):
+    """(least ms on the card, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def patch_bytes(atlas, live: int, P: int) -> int:
+    """Atlas bytes a sampling kernel must read: each live keypoint's
+    (P + 8) x P f32 patch (P = 40 for K4, K5 and K9, 16 for K8), or the
+    whole atlas where that is less."""
+    return min(4 * atlas.numel(), live * (P + 8) * P * 4)
+
+
+def kernel_record(name, err, k_fn, p_fn, shapes, nbytes, ops, peak=F32_FLOPS,
+                  lib_fn=None, plain_reps=20):
+    """A kernel's record: max |err| against its plain version, CUDA-event
+    ms of kernel and plain version, the bound on the card for ``nbytes``
+    and ``ops``, and the ms of ``lib_fn`` (one PyTorch call computing the
+    same function) where there is one."""
+    from sfm_tpu_torch.utils.precision import f32_precision
+
+    src, replaces = KERNEL_SOURCES[name]
+    b_ms, b_by = bound(nbytes, ops, peak)
+    lib_ms = None
+    if lib_fn is not None:
+        with f32_precision():
+            lib_ms = cuda_ms(lib_fn)
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "max_abs_err": err, "ms": cuda_ms(k_fn),
+            "plain_ms": cuda_ms(p_fn, reps=plain_reps), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes, "ops": ops,
+            "shapes": shapes}
+
+
+def hold_orientation_kernel(img, x, y, s, count, gates, where):
+    """K8 against its plain version on keypoints compacted valid-first:
+    within 1e-6 of the largest bin, rows >= ``count`` zero.  Returns
+    (max |err|, max |h|)."""
+    from sfm_tpu_torch.ops import sample
+
+    hk = sample.orientation_histogram_sample(img, x, y, s, count)
+    hp = sample.orientation_histogram_sample_plain(img, x, y, s, count)
+    e8 = float((hk - hp).abs().max())
+    h8max = float(hp.abs().max())
+    gates.check(e8 <= 1e-6 * h8max, f"{where}: K8 max err {e8} (max |h| {h8max})")
+    gates.check(not bool(hk[int(count):].any()), f"{where}: K8 rows >= count not zero")
+    return e8, h8max
+
+
 class Gates:
     def __init__(self):
         self.failures = []
@@ -123,7 +247,7 @@ class Gates:
 
 def slice_config():
     """bench.py's configuration (bench.py:75-79)."""
-    from sfm_tpu.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
 
     return PipelineConfig(
         sift=SiftConfig(max_pts_per_octave=1024),
@@ -134,7 +258,7 @@ def slice_config():
 
 def upscale_config():
     """tools/bench_upscale.py's up_t2.0 (``cfgf(2.0, True)``)."""
-    from sfm_tpu.config import SiftConfig
+    from sfm_tpu_torch.config import SiftConfig
 
     per = 4096
     return SiftConfig(num_octaves=5, max_pts_per_octave=per,
@@ -151,20 +275,49 @@ KERNEL_SOURCES = {
                                 "sfm_tpu/ops/pallas_sample.py:788"),
     "descriptor_sample": ("sfm_tpu_torch/csrc/sample.cu", "sfm_tpu/ops/pallas_sample.py:414"),
     "match_top2": ("sfm_tpu_torch/csrc/match.cu", "sfm_tpu/ops/pallas_match.py:247"),
+    "orientation_histogram_sample": ("sfm_tpu_torch/csrc/sample.cu",
+                                     "sfm_tpu/ops/pallas_sample.py:578"),
+    "fused_orient_descriptor_win": ("sfm_tpu_torch/csrc/sample.cu",
+                                    "sfm_tpu/ops/pallas_sample.py:998"),
 }
+
+
+def check_path_launches(path, launches, gates):
+    """Every kernel the path goes through launched in its run."""
+    for name in sorted(PATH_KERNELS[path]):
+        gates.check(launches[name] > 0, f"kernel {name} was not launched on the "
+                    f"{path} path")
+
+
+def _conv(taps, stride, dev):
+    """One PyTorch module computing a separable blur as a 2-D convolution
+    of the edge-replicated image (the yardstick of K1 and K2)."""
+    import numpy as np
+    import torch
+
+    n = len(taps)
+    conv = torch.nn.Conv2d(1, 1, n, stride=stride, padding=n // 2,
+                           padding_mode="replicate", bias=False).to(dev)
+    with torch.no_grad():
+        conv.weight.copy_(torch.as_tensor(np.outer(taps, taps), device=dev))
+    conv.requires_grad_(False)
+    return conv
 
 
 def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     """Every kernel of a main path against its plain version on the
     card, at the shapes that path gives it: K7 (with ``up_scale``), K1
-    and K2 on img1's base chain, K3 on its octave bases, K4 on its
-    capped sample slots, K5 on their duplicate subset, and K6 on the
-    descriptor sets ``s1`` x ``s2`` (the path's own extractions of img1
-    and img2; extracted here when not given).  Launches made here are
-    not the path's: callers read the launch counts before.  Returns
-    {kernel name: record} with max |err|, CUDA-event ms for kernel and
-    plain version, and the shapes."""
+    and K2 on img1's base chain, K3 on its octave bases, K4, K8 and K9
+    on its capped sample slots (K9 also against K4's output), K5 on
+    their duplicate subset, and K6 on the descriptor sets ``s1`` x
+    ``s2`` (the path's own extractions of img1 and img2; extracted here
+    when not given).  Launches made here are not the path's: callers
+    read the launch counts before.  Returns {kernel name: record} with
+    max |err|, CUDA-event ms for kernel and plain version, the bound on
+    the card, the library call's ms where there is one, and the
+    shapes."""
     import torch
+    import torch.nn.functional as F
 
     from sfm_tpu_torch.ops import compact, detect, match, sample
     from sfm_tpu_torch.ops import pyramid as pyr
@@ -173,12 +326,8 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
 
     rec = {}
 
-    def add(name, err, k_fn, p_fn, shapes, plain_reps=20):
-        src, replaces = KERNEL_SOURCES[name]
-        rec[name] = {"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "max_abs_err": err,
-                     "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, reps=plain_reps),
-                     "shapes": shapes}
+    def add(name, *args, **kwargs):
+        rec[name] = kernel_record(name, *args, **kwargs)
 
     def err(a, b):
         return float((a - b).abs().max())
@@ -192,8 +341,12 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
         gates.check(tuple(base0.shape) == (2 * img1.shape[0], 2 * img1.shape[1]),
                     f"{where}: K7 shape {tuple(base0.shape)}")
         gates.check(e7 <= 1e-4, f"{where}: K7 max err {e7}")
+        n_in = img1.numel()
         add("scale_up", e7, lambda: pyr.scale_up(img1), lambda: pyr.scale_up_plain(img1),
-            f"{tuple(img1.shape)} -> {tuple(base0.shape)} f32, both images")
+            f"{tuple(img1.shape)} -> {tuple(base0.shape)} f32, both images",
+            4 * (n_in + 4 * n_in), 8 * n_in,
+            lib_fn=lambda: F.interpolate(img1[None, None], scale_factor=2,
+                                         mode="bilinear", align_corners=False))
     sigma = max(sc.init_blur, 1e-3)
     lp = gaussian_kernel(sc.lowpass_radius, sigma * sigma)
     sd = gaussian_kernel(2, 0.5)
@@ -216,11 +369,26 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
             b = fn(b, sd)
         return b
 
+    conv1, conv2 = _conv(lp, 1, base0.device), _conv(sd, 2, base0.device)
+
+    def descend_conv():
+        b = chain[0][None, None]
+        for _ in range(sc.num_octaves - 1):
+            b = conv2(b)
+        return b
+
     add("blur9", e1, lambda: pyr.blur9(base0, lp), lambda: pyr.blur9_plain(base0, lp),
-        f"{H}x{W} f32, {lp.size} taps")
+        f"{H}x{W} f32, {lp.size} taps", 8 * H * W, 4 * lp.size * H * W,
+        lib_fn=lambda: conv1(base0[None, None]))
+    # Per descent [h, w] -> [h/2, w/2]: the 5 vertical taps on the kept
+    # rows at full width, then the 5 horizontal taps on the kept columns.
+    desc_in = [(h, w) for h, w in shapes[:-1]]
     add("scale_down", e2, lambda: descend(pyr.scale_down),
         lambda: descend(pyr.scale_down_plain),
-        f"the {sc.num_octaves - 1} descents {shapes} (one image)")
+        f"the {sc.num_octaves - 1} descents {shapes} (one image)",
+        sum(4 * (h * w + (h // 2) * (w // 2)) for h, w in desc_in),
+        sum(10 * (h // 2) * w + 10 * (h // 2) * (w // 2) for h, w in desc_in),
+        lib_fn=descend_conv)
 
     # K3 on the octave bases.
     bases = pyramid.base_chain(img1, sc)
@@ -239,14 +407,21 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     gates.check(n_cand > 1000, f"{where}: K3 only {n_cand} candidates")
     gates.check(mism <= max(2, 0.001 * n_cand), f"{where}: K3 {mism} mismatched pixels")
     gates.check(e3 <= 1e-4, f"{where}: K3 max err {e3}")
+    # Per pixel: the separable blur bank, the DoG differences and the
+    # 26-neighbour test on each interior DoG plane; out: resp + 11 aux.
+    n_px = sum(b.numel() for b in bases)
+    planes, ntap = taps[0].shape
     add("detect_maps", e3,
         lambda: [detect.detect_maps(b, tp, sc.thresh, sc.edge_limit)
                  for b, tp in zip(bases, taps)],
         lambda: [detect.detect_maps_plain(b, tp, sc.thresh, sc.edge_limit)
                  for b, tp in zip(bases, taps)],
-        f"{len(bases)} octave bases of {H}x{W} (one image)", plain_reps=5)
+        f"{len(bases)} octave bases of {H}x{W} (one image)",
+        4 * n_px * (1 + 12),
+        n_px * (4 * planes * ntap + (planes - 1) + 26 * (planes - 3)),
+        plain_reps=5)
 
-    # K4 on the capped sample slots of the path's detect stage.
+    # K4, K8 and K9 on the capped sample slots of the path's detect stage.
     atlas, dets = frontend.detect_stage(img1, sc)
     x = torch.cat([d.x for d in dets])
     y = torch.cat([d.y for d in dets])
@@ -257,23 +432,52 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     order = frontend._sample_order(v, sharp, sc.sample_cap)
     x, y, s, v = x[order], y[order], s[order], v[order]
     count = v.sum().to(torch.int32)
+    K = x.shape[0]
     d1k, o1k, o2k, dk = sample.fused_orient_descriptor(atlas, x, y, s, count)
     d1p, o1p, o2p, dp = sample.fused_orient_descriptor_plain(atlas, x, y, s, count)
     n = int(count)
-    row = (describe.normalize_descriptors(d1k) - describe.normalize_descriptors(d1p)
-           ).abs().amax(dim=1)[:n]
-    ori = ((o1k - o1p + 180.0) % 360.0 - 180.0).abs()[:n]
-    frac = float(((row <= 1e-3) & (ori <= 0.01)).float().mean())
-    e4 = float(row.max())
+
+    def rows_agree(d1a, o1a, d1b, o1b):
+        row = (describe.normalize_descriptors(d1a) - describe.normalize_descriptors(d1b)
+               ).abs().amax(dim=1)[:n]
+        ori = ((o1a - o1b + 180.0) % 360.0 - 180.0).abs()[:n]
+        return float(((row <= 1e-3) & (ori <= 0.01)).float().mean()), float(row.max())
+
+    frac, e4 = rows_agree(d1k, o1k, d1p, o1p)
     dup_agree = float((dk == dp)[:n].float().mean())
-    gates.check(x.shape[0] == n_slots, f"{where}: K4 {x.shape[0]} slots, not {n_slots}")
+    gates.check(K == n_slots, f"{where}: K4 {K} slots, not {n_slots}")
     gates.check(frac >= 0.995, f"{where}: K4 only {frac:.4f} of rows agree")
     gates.check(dup_agree >= 0.995, f"{where}: K4 dup agreement {dup_agree:.4f}")
     gates.check(not bool(d1k[n:].any()), f"{where}: K4 rows >= count not zero")
+    # Bytes: the live keypoints' inputs and patches, every slot's outputs.
+    fused_bytes = patch_bytes(atlas, n, 40) + 3 * 4 * n + K * (128 * 4 + 4 + 4 + 1)
+    fused_ops = n * (ORI_OPS + PEAK_OPS + DESC_OPS)
     add("fused_orient_descriptor", e4,
         lambda: sample.fused_orient_descriptor(atlas, x, y, s, count),
         lambda: sample.fused_orient_descriptor_plain(atlas, x, y, s, count),
-        f"{x.shape[0]} slots, {n} live, atlas {tuple(atlas.shape)}", plain_reps=5)
+        f"{K} slots, {n} live, atlas {tuple(atlas.shape)}", fused_bytes, fused_ops,
+        plain_reps=5)
+
+    # K9: K4's outputs bit for bit, and K4's plain version at K4's gates.
+    d1w, o1w, o2w, dw = sample.fused_orient_descriptor_win(atlas, x, y, s, count)
+    e9k = max(err(d1w, d1k), err(o1w, o1k), err(o2w, o2k))
+    frac9, e9 = rows_agree(d1w, o1w, d1p, o1p)
+    gates.check(e9k == 0.0 and bool((dw == dk).all()),
+                f"{where}: K9 differs from K4 by {e9k}")
+    gates.check(frac9 >= 0.995, f"{where}: K9 only {frac9:.4f} of rows agree")
+    add("fused_orient_descriptor_win", e9,
+        lambda: sample.fused_orient_descriptor_win(atlas, x, y, s, count),
+        lambda: sample.fused_orient_descriptor_plain(atlas, x, y, s, count),
+        f"{K} slots, {n} live, atlas {tuple(atlas.shape)}", fused_bytes, fused_ops,
+        plain_reps=5)
+
+    # K8: raw histograms on the 16-column patch.
+    e8, h8max = hold_orientation_kernel(atlas, x, y, s, count, gates, where)
+    add("orientation_histogram_sample", e8,
+        lambda: sample.orientation_histogram_sample(atlas, x, y, s, count),
+        lambda: sample.orientation_histogram_sample_plain(atlas, x, y, s, count),
+        f"{K} slots, {n} live, atlas {tuple(atlas.shape)}",
+        patch_bytes(atlas, n, 16) + 3 * 4 * n + K * 32 * 4, n * ORI_OPS, plain_reps=5)
 
     # K5 on the duplicate subset.
     v2 = dk & v
@@ -290,7 +494,9 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     add("descriptor_sample", e5,
         lambda: sample.descriptor_sample(atlas, xd, yd, sd2, od2, c2),
         lambda: sample.descriptor_sample_plain(atlas, xd, yd, sd2, od2, c2),
-        f"{x.shape[0]} slots, {n2} live", plain_reps=5)
+        f"{K} slots, {n2} live",
+        patch_bytes(atlas, n2, 40) + 4 * 4 * n2 + K * 128 * 4, n2 * DESC_OPS,
+        plain_reps=5)
 
     # K6 on the path's descriptor sets of both images.
     if s1 is None:
@@ -305,19 +511,23 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     gates.check(a.shape[0] == 2 * n_slots, f"{where}: K6 {a.shape[0]} rows")
     gates.check(agree >= 0.999, f"{where}: K6 argmax agreement {agree}")
     gates.check(e6 <= 1e-4, f"{where}: K6 max err {e6}")
+    n1r, n2r = a.shape[0], b.shape[0]
     add("match_top2", e6, lambda: match.match_top2(a, b, va),
         lambda: match.match_top2_plain(a, b, va),
-        f"{a.shape[0]}x{b.shape[0]}x128 bf16, {int(live.sum())} live rows")
+        f"{n1r}x{n2r}x128 bf16, {int(live.sum())} live rows",
+        2 * 128 * (n1r + n2r) + n2r + 12 * n1r, 2.0 * n1r * n2r * 128, peak=BF16_FLOPS)
     torch.cuda.synchronize()
     e7_txt = f"K7 {rec['scale_up']['max_abs_err']:.3g}, " if sc.up_scale else ""
     log(f"{where}, kernels against their plain versions: {e7_txt}K1 {H}x{W} "
         f"{e1:.3g}; K2 {shapes} {e2:.3g} (expected 0, tolerance 1e-4); K3 "
         f"candidates {n_cand}, mismatched pixels {mism}, max |err| {e3:.3g} "
-        f"(tolerance <= max(2, 0.1%), 1e-4); K4 slots {x.shape[0]}, live {n}, "
+        f"(tolerance <= max(2, 0.1%), 1e-4); K4 slots {K}, live {n}, "
         f"rows within 1e-3 and 0.01 deg {frac:.5f}, dup agreement {dup_agree:.5f}, "
-        f"max |err| {e4:.3g} (>= 99.5%); K5 duplicates {n2}, max |err| {e5:.3g} "
-        f"(1e-3); K6 {a.shape[0]} x {b.shape[0]} x 128, argmax agreement "
-        f"{agree:.5f}, max |err| {e6:.3g} (>= 99.9%, 1e-4)")
+        f"max |err| {e4:.3g} (>= 99.5%); K9 vs K4 max |err| {e9k:.3g} (expected "
+        f"0), vs plain rows {frac9:.5f}, max |err| {e9:.3g}; K8 max |err| "
+        f"{e8:.3g} of max |h| {h8max:.4g} (tolerance 1e-6 relative); "
+        f"K5 duplicates {n2}, max |err| {e5:.3g} (1e-3); K6 {n1r} x {n2r} x 128, "
+        f"argmax agreement {agree:.5f}, max |err| {e6:.3g} (>= 99.9%, 1e-4)")
     return rec
 
 
@@ -369,6 +579,28 @@ def median(rows, key):
     return vals[m] if len(vals) % 2 else 0.5 * (vals[m - 1] + vals[m])
 
 
+def gate_two_view(rows, ref, gates, where):
+    """Per-seed pose bounds and median quality against a reference's
+    medians; returns the medians."""
+    for r in rows:
+        gates.check(r["rot_deg"] <= MAX_ROT_DEG,
+                    f"{where} seed {r['seed']}: rotation error {r['rot_deg']:.3f} deg")
+        gates.check(r["tdir_deg"] <= MAX_TDIR_DEG,
+                    f"{where} seed {r['seed']}: translation error "
+                    f"{r['tdir_deg']:.3f} deg")
+    med = {k: median(rows, k) for k in ("matches", "inliers", "valid", "px", "ms",
+                                        "rot_deg", "tdir_deg")}
+    log(f"{where} median: matches {med['matches']:.0f} inliers {med['inliers']:.0f} "
+        f"valid {med['valid']:.0f} px {med['px']:.4f} rot {med['rot_deg']:.4f} "
+        f"deg tdir {med['tdir_deg']:.4f} deg")
+    for k in ("matches", "inliers", "valid"):
+        gates.check(med[k] >= 0.9 * ref[k],
+                    f"{where} median {k} {med[k]} < 90% of the JAX package's {ref[k]}")
+    gates.check(med["px"] <= ref["px"] / 0.9,
+                f"{where} median px {med['px']:.4f} > JAX {ref['px']} / 0.9")
+    return med
+
+
 def end_to_end(pair, cfg, gates, dev, card):
     """Phase 4: the port's bench path on the synthetic pair."""
     import torch
@@ -385,34 +617,17 @@ def end_to_end(pair, cfg, gates, dev, card):
     rows = run_pairs(img1, img2, K, cfg, f, range(8), dev)
     launches = dict(_cuda.LAUNCHES)
     for r in rows:
-        r["rot_deg"], r["tdir_deg"] = pose_errors_deg(r["R"], r["t"], pair["R"],
-                                                      pair["t"])
+        r["rot_deg"], r["tdir_deg"] = pose_errors_deg(r.pop("R"), r.pop("t"),
+                                                      pair["R"], pair["t"])
         log(f"seed {r['seed']}: matches {r['matches']} inliers {r['inliers']} "
             f"valid {r['valid']} px {r['px']:.4f} rot {r['rot_deg']:.4f} deg "
             f"tdir {r['tdir_deg']:.4f} deg  {r['ms']:.1f} ms")
         gates.check(r["finite"], f"seed {r['seed']}: non-finite points")
-        gates.check(r["rot_deg"] <= MAX_ROT_DEG,
-                    f"seed {r['seed']}: rotation error {r['rot_deg']:.3f} deg")
-        gates.check(r["tdir_deg"] <= MAX_TDIR_DEG,
-                    f"seed {r['seed']}: translation error {r['tdir_deg']:.3f} deg")
-    med = {k: median(rows, k) for k in ("matches", "inliers", "valid", "px", "ms",
-                                        "rot_deg", "tdir_deg")}
-    log(f"median: matches {med['matches']:.0f} inliers {med['inliers']:.0f} "
-        f"valid {med['valid']:.0f} px {med['px']:.4f} rot {med['rot_deg']:.4f} "
-        f"deg tdir {med['tdir_deg']:.4f} deg")
+    med = gate_two_view(rows, JAX_MEDIANS, gates, "bench path")
     log(f"ms/pair: median {med['ms']:.2f} (host clock around a synchronized "
         f"pair, 720x576, {card})")
     log(f"launches in the 8-pair run: {launches}")
-    for k in ("matches", "inliers", "valid"):
-        gates.check(med[k] >= 0.9 * JAX_MEDIANS[k],
-                    f"median {k} {med[k]} < 90% of the JAX package's {JAX_MEDIANS[k]}")
-    gates.check(med["px"] <= JAX_MEDIANS["px"] / 0.9,
-                f"median px {med['px']:.4f} > JAX {JAX_MEDIANS['px']} / 0.9")
-    for name, n in launches.items():
-        if name != "scale_up":   # K7 runs only on the up-scale path
-            gates.check(n > 0, f"kernel {name} was not launched on the bench path")
-    for r in rows:
-        r.pop("R"), r.pop("t")
+    check_path_launches("bench", launches, gates)
     return launches, med, rows
 
 
@@ -447,20 +662,20 @@ def h_fit(s1, s2, m, generator, n_hyps: int = 8192) -> HFit:
     return HFit(H, uv1, uv2, cand, int(((errs < 9.0) & slot_ok).sum()))
 
 
-def upscale_path(rpair, gates, dev, card):
-    """Phase 5: up_t2.0 extraction -> matching -> H-fit on the rotation
-    pair, then every kernel of that run against its plain version at
-    the run's shapes.  Returns (result, kernel records)."""
+def upscale_run(rpair, cfg, dev):
+    """One up-scale run as bench_upscale drives it: warm-up, 6 timed
+    extractions, then the counted run (launch counts set to 0 just
+    before, read just after): extract x2, match, H-fit.  Returns (result
+    dict, s1, s2)."""
     import numpy as np
     import torch
 
-    from sfm_tpu.config import MatchConfig
+    from sfm_tpu_torch.config import MatchConfig
     from sfm_tpu_torch.ops import _cuda
     from sfm_tpu_torch.sift import frontend
     from sfm_tpu_torch.sift import match as match_mod
     from synthetic_pair import homography_grid_errors, transfer_px
 
-    cfg = upscale_config()
     img1 = torch.as_tensor(rpair["img1"], device=dev)
     img2 = torch.as_tensor(rpair["img2"], device=dev)
     frontend.extract_sift(img1, cfg)                     # warm-up
@@ -489,33 +704,47 @@ def upscale_path(rpair, gates, dev, card):
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     launches = dict(_cuda.LAUNCHES)
-    H, numfit = fit.H, fit.numfit
     cand = fit.cand.cpu().numpy()
-    n_cand = int(cand.sum())
     # Candidates that the exact homography places > 3 px from their match.
     true_err = transfer_px(rpair["H_gt"], fit.uv1.cpu().numpy(), fit.uv2.cpu().numpy())
-    n_wrong = int((cand & (true_err > 3.0)).sum())
-    n_match = int(m.valid.sum())
-    stage_ms = {k: (b - a) * 1e3 for k, a, b in
-                zip(("extract_x2", "match", "h_fit"), t, t[1:])}
-    n1, n2 = int(s1.keypoints.valid.sum()), int(s2.keypoints.valid.sum())
     h, w = rpair["img1"].shape
-    grid = homography_grid_errors(H.cpu().numpy(), rpair["H_gt"], h, w)
-    res = {"n1": n1, "n2": n2, "matches": n_match, "candidates": n_cand,
-           "wrong_candidates": n_wrong, "numfit": numfit,
+    grid = homography_grid_errors(fit.H.cpu().numpy(), rpair["H_gt"], h, w)
+    res = {"n1": int(s1.keypoints.valid.sum()), "n2": int(s2.keypoints.valid.sum()),
+           "matches": int(m.valid.sum()), "candidates": int(cand.sum()),
+           "wrong_candidates": int((cand & (true_err > 3.0)).sum()),
+           "numfit": fit.numfit,
            "h_median_px": float(np.median(grid)), "h_max_px": float(grid.max()),
            "extract_ms_per_image": float(np.median(times)),
-           "stage_ms": stage_ms, "launches": launches,
-           "finite": bool(torch.isfinite(H).all())}
-    log(f"up-scale {w}x{h} -> {2 * w}x{2 * h}: features {n1} / {n2}, ratio-test "
-        f"matches {n_match}, H-fit candidates {n_cand} ({n_wrong} > 3 px off "
-        f"H_gt), H-fit {numfit}; H vs H_gt on a 16x12 grid: median "
-        f"{res['h_median_px']:.4f} px, max {res['h_max_px']:.4f} px")
-    log(f"up-scale extraction: {res['extract_ms_per_image']:.2f} ms/image "
+           "stage_ms": {k: (b - a) * 1e3 for k, a, b in
+                        zip(("extract_x2", "match", "h_fit"), t, t[1:])},
+           "launches": launches, "finite": bool(torch.isfinite(fit.H).all())}
+    return res, s1, s2
+
+
+def _log_upscale(res, rpair, card, where):
+    h, w = rpair["img1"].shape
+    st = res["stage_ms"]
+    log(f"{where} {w}x{h} -> {2 * w}x{2 * h}: features {res['n1']} / {res['n2']}, "
+        f"ratio-test matches {res['matches']}, H-fit candidates {res['candidates']} "
+        f"({res['wrong_candidates']} > 3 px off H_gt), H-fit {res['numfit']}; H vs "
+        f"H_gt on a 16x12 grid: median {res['h_median_px']:.4f} px, max "
+        f"{res['h_max_px']:.4f} px")
+    log(f"{where} extraction: {res['extract_ms_per_image']:.2f} ms/image "
         f"(median of 6, host clock around a synchronized call, {card}); "
-        f"in the counted run: extract x2 {stage_ms['extract_x2']:.1f} ms, "
-        f"match {stage_ms['match']:.1f} ms, H-fit {stage_ms['h_fit']:.1f} ms")
-    log(f"launches in the up-scale run: {launches}")
+        f"in the counted run: extract x2 {st['extract_x2']:.1f} ms, "
+        f"match {st['match']:.1f} ms, H-fit {st['h_fit']:.1f} ms")
+    log(f"launches in the {where} run: {res['launches']}")
+
+
+def upscale_path(rpair, gates, dev, card):
+    """Phase 5: up_t2.0 extraction -> matching -> H-fit on the rotation
+    pair, then every kernel of that run against its plain version at
+    the run's shapes.  Returns (result, kernel records)."""
+    import torch
+
+    cfg = upscale_config()
+    res, s1, s2 = upscale_run(rpair, cfg, dev)
+    _log_upscale(res, rpair, card, "up-scale")
     gates.check(res["finite"], "up-scale: non-finite H")
     for k in ("n1", "n2", "candidates", "numfit"):
         gates.check(res[k] >= 0.9 * JAX_UPSCALE[k],
@@ -525,15 +754,255 @@ def upscale_path(rpair, gates, dev, card):
                 f"up-scale H median error {res['h_median_px']:.4f} px")
     gates.check(res["h_max_px"] <= MAX_H_MAX_PX,
                 f"up-scale H max error {res['h_max_px']:.4f} px")
-    for name, n in launches.items():
-        gates.check(n > 0, f"kernel {name} was not launched on the up-scale path")
+    check_path_launches("upscale", res["launches"], gates)
     # The counted run's inputs at its own shapes, after the counts were read.
+    img1 = torch.as_tensor(rpair["img1"], device=dev)
+    img2 = torch.as_tensor(rpair["img2"], device=dev)
     kernels = hold_kernels(img1, img2, cfg, gates, "up-scale path", s1, s2)
     return res, kernels
 
 
+def upscale_window_path(rpair, ref, gates, dev, card):
+    """Phase 7: the up-scale path with ``sample_window=True`` (K9 in
+    place of K4); the same features, matches, H-fit and H error as the
+    K4 run ``ref``."""
+    import dataclasses
+
+    cfg = dataclasses.replace(upscale_config(), sample_window=True)
+    res, _, _ = upscale_run(rpair, cfg, dev)
+    _log_upscale(res, rpair, card, "up-scale sample_window=True")
+    for k in ("n1", "n2", "matches", "candidates", "wrong_candidates", "numfit",
+              "h_median_px", "h_max_px"):
+        gates.check(res[k] == ref[k], f"up-scale sample_window=True: {k} "
+                    f"{res[k]} != the K4 run's {ref[k]}")
+    check_path_launches("upscale_window", res["launches"], gates)
+    gates.check(res["launches"]["fused_orient_descriptor"] == 0,
+                "up-scale sample_window=True went through K4")
+    return res
+
+
+def module_api(img, sc, gates, dev):
+    """Phase 6: ``assign_orientations`` (K8) and ``extract_descriptors
+    (valid=...)`` (K5) on the atlas and every detection slot of a real
+    ``detect_stage``, against K4 and K5 on the same keypoints.  Then K8
+    and K5 against their plain versions on the inputs this phase gave
+    them (every slot, compacted valid-first).  Returns (result,
+    launches, {kernel name: record})."""
+    import torch
+
+    from sfm_tpu_torch.ops import _cuda, compact, sample
+    from sfm_tpu_torch.sift import describe, frontend, orient
+
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    atlas, dets = frontend.detect_stage(img, sc)
+    x, y, s, v = (torch.cat([getattr(d, f) for d in dets])
+                  for f in ("x", "y", "scale", "valid"))
+    o1, o2, v2 = orient.assign_orientations(atlas, x, y, s, v, use_pallas=True)
+    da = describe.extract_descriptors(atlas, x, y, s, o1, valid=v, use_pallas=True)
+    db = describe.extract_descriptors(atlas, x, y, s, o2, valid=v2, use_pallas=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    # K4 on the same keypoints compacted valid-first, K5 on its
+    # duplicates, both scattered back to the slots.
+    order = compact.compaction_order(v)
+    count = v.sum().to(torch.int32)
+    d1c, k1c, k2c, kdc = sample.fused_orient_descriptor(
+        atlas, x[order], y[order], s[order], count)
+    d1, k1, k2 = torch.empty_like(d1c), torch.empty_like(k1c), torch.empty_like(k2c)
+    kd = torch.empty_like(kdc)
+    d1[order], k1[order], k2[order], kd[order] = d1c, k1c, k2c, kdc
+    kd = kd & v
+    od = compact.compaction_order(kd)
+    d2 = torch.zeros_like(d1)
+    d2[od] = sample.descriptor_sample(atlas, x[od], y[od], s[od], k2[od],
+                                      kd.sum().to(torch.int32))
+
+    # K8 and K5 as the module API launched them, against their plain
+    # versions: K8 is timed and bounded at these shapes.
+    xc, yc, scc, o1c = x[order], y[order], s[order], o1[order]
+    e8, h8max = hold_orientation_kernel(atlas, xc, yc, scc, count, gates, "module API")
+    K = x.shape[0]
+    n_live = int(count)
+    held = {"orientation_histogram_sample": kernel_record(
+        "orientation_histogram_sample", e8,
+        lambda: sample.orientation_histogram_sample(atlas, xc, yc, scc, count),
+        lambda: sample.orientation_histogram_sample_plain(atlas, xc, yc, scc, count),
+        f"{K} slots, {n_live} live, atlas {tuple(atlas.shape)}",
+        patch_bytes(atlas, n_live, 16) + 3 * 4 * n_live + K * 32 * 4,
+        n_live * ORI_OPS, plain_reps=5)}
+    r5k = sample.descriptor_sample(atlas, xc, yc, scc, o1c, count)
+    r5p = sample.descriptor_sample_plain(atlas, xc, yc, scc, o1c, count)
+    e5 = float((describe.normalize_descriptors(r5k)
+                - describe.normalize_descriptors(r5p)).abs().max())
+    gates.check(e5 <= 1e-3, f"module API: K5 max err {e5}")
+    gates.check(not bool(r5k[n_live:].any()), "module API: K5 rows >= count not zero")
+    held["descriptor_sample"] = {"max_abs_err": e5}
+    log(f"module API, kernels against their plain versions on {K} compacted "
+        f"slots ({n_live} live): K8 max |err| {e8:.3g} of max |h| {h8max:.4g} "
+        f"(tolerance 1e-6 relative), K5 max |err| {e5:.3g} (1e-3)")
+
+    def ang(a, b):
+        return ((a - b + 180.0) % 360.0 - 180.0).abs()
+
+    ori_ok = (ang(o1, k1) <= 0.1) & (~kd | (ang(o2, k2) <= 0.1))
+    frac_ori = float(ori_ok[v].float().mean())
+    v2_agree = float((v2 == kd)[v].float().mean())
+    dot1 = (da * describe.normalize_descriptors(d1)).sum(1)[v]
+    both = v2 & kd
+    dot2 = (db * describe.normalize_descriptors(d2)).sum(1)[both]
+    frac_d1 = float((dot1 > 0.999).float().mean())
+    frac_d2 = float((dot2 > 0.999).float().mean())
+    n_dup = int(both.sum())
+    log(f"module API on {x.shape[0]} detection slots ({n_live} live, atlas "
+        f"{tuple(atlas.shape)}): orientations within 0.1 deg of K4's {frac_ori:.5f}, "
+        f"valid2 = K4's dup on {v2_agree:.5f}, descriptor dot > 0.999 with K4's "
+        f"{frac_d1:.5f} and with K5's on {n_dup} duplicates {frac_d2:.5f} "
+        f"(gates >= 0.99); {ms:.1f} ms with detection")
+    log(f"launches in the module-API run: {launches}")
+    gates.check(n_live > 1000, f"module API: only {n_live} live keypoints")
+    gates.check(n_dup > 0, "module API: no duplicates")
+    gates.check(frac_ori >= 0.99, f"module API: orientations agree on {frac_ori:.4f}")
+    gates.check(v2_agree >= 0.99, f"module API: valid2 agrees on {v2_agree:.4f}")
+    gates.check(frac_d1 >= 0.99, f"module API: descriptors agree on {frac_d1:.4f}")
+    gates.check(frac_d2 >= 0.99, f"module API: duplicates agree on {frac_d2:.4f}")
+    check_path_launches("module_api", launches, gates)
+    return {"slots": x.shape[0], "live": n_live, "duplicates": n_dup,
+            "orientation_agreement": frac_ori, "valid2_agreement": v2_agree,
+            "descriptor_agreement": frac_d1, "duplicate_agreement": frac_d2,
+            "ms": ms}, launches, held
+
+
+def _ply_vertices(path) -> int:
+    with open(path, "rb") as fh:
+        head = fh.read(4096).split(b"end_header")[0].decode()
+    return int(next(line.split()[2] for line in head.splitlines()
+                    if line.startswith("element vertex")))
+
+
+def cli_phase(pair, rpair, gates, dev, card):
+    """Phase 8: ``python -m sfm_tpu_torch`` in-process on PGMs of the
+    synthetic pair (reconstruct, 8 seeds) and of the rotation pair
+    (sift --up-scale --homography), then ``run_two_view`` at
+    ``PipelineConfig()``.  Returns (result, launches of the CLI runs)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch import cli
+    from sfm_tpu_torch.config import PipelineConfig, SiftConfig
+    from sfm_tpu_torch.models import two_view
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.sift import frontend
+    from synthetic_pair import homography_grid_errors, pose_errors_deg, write_pgm
+
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        a, b, ra, rb = (os.path.join(d, n) for n in ("a.pgm", "b.pgm", "ra.pgm",
+                                                     "rb.pgm"))
+        for path, img in ((a, pair["img1"]), (b, pair["img2"]),
+                          (ra, rpair["img1"]), (rb, rpair["img2"])):
+            write_pgm(path, img)
+        _cuda.reset_launches()
+        for seed in range(8):
+            ply, js = os.path.join(d, f"c{seed}.ply"), os.path.join(d, f"m{seed}.json")
+            with contextlib.redirect_stdout(io.StringIO()):   # the metrics JSON
+                rc = cli.main(["reconstruct", a, b, "--focal", "792", "--out", ply,
+                               "--metrics", js, "--seed", str(seed)])
+            with open(js) as fh:
+                m = json.load(fh)
+            rot, tdir = pose_errors_deg(np.array(m["R"]), np.array(m["t"]),
+                                        pair["R"], pair["t"])
+            rows.append({"seed": seed, "rc": rc, "matches": m["num_matches"],
+                         "inliers": m["num_inliers"], "valid": m["num_points"],
+                         "px": m["mean_reproj_px"], "rot_deg": rot, "tdir_deg": tdir,
+                         "ms": m["stage_times"]["pipeline"]["total_ms"],
+                         "ply_vertices": _ply_vertices(ply), "device": m["device"]})
+        sj = os.path.join(d, "sift.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_sift = cli.main(["sift", ra, rb, "--up-scale", "--homography",
+                                "--metrics", sj, "--out", os.path.join(d, "f.npz")])
+        launches = dict(_cuda.LAUNCHES)
+        with open(sj) as fh:
+            sm = json.load(fh)
+        with np.load(os.path.join(d, "f.npz")) as npz:
+            npz_rows = [npz[f"descriptors{i}"].shape[0] for i in (0, 1)]
+    for r in rows:
+        log(f"cli seed {r['seed']}: matches {r['matches']} inliers {r['inliers']} "
+            f"valid {r['valid']} px {r['px']:.4f} rot {r['rot_deg']:.4f} deg tdir "
+            f"{r['tdir_deg']:.4f} deg  {r['ms']:.1f} ms  (PLY {r['ply_vertices']} "
+            f"vertices)")
+        gates.check(r["rc"] == 0, f"cli seed {r['seed']}: exit code {r['rc']}")
+        gates.check(r["ply_vertices"] == r["valid"],
+                    f"cli seed {r['seed']}: PLY holds {r['ply_vertices']} vertices, "
+                    f"num_points {r['valid']}")
+        gates.check(r["device"] == torch.cuda.get_device_name(0),
+                    f"cli seed {r['seed']}: ran on {r['device']}")
+    med = gate_two_view(rows, JAX_CLI_MEDIANS, gates, "cli reconstruct")
+    log(f"cli reconstruct ms/pair (translation re-vote on): median {med['ms']:.2f} "
+        f"(the CLI's pipeline stage: host clock around a synchronized "
+        f"run_two_view, 720x576, {card})")
+    # The sift demo's features against the port's own extraction at the
+    # CLI's configuration on the unquantized pair: the CLI keeps the
+    # default sample_cap (2,560 slots, so at most 5,120 features), where
+    # phase 5's up_t2.0 config keeps 16,384.
+    scfg = SiftConfig(num_octaves=5, thresh=2.0, max_pts_per_octave=2048,
+                      up_scale=True)
+    ref = [int(frontend.extract_sift(torch.as_tensor(rpair[k], device=dev),
+                                     scfg).keypoints.valid.sum())
+           for k in ("img1", "img2")]
+    h, w = rpair["img1"].shape
+    grid = homography_grid_errors(np.array(sm["H"]), rpair["H_gt"], h, w)
+    sift_res = {"features": sm["features"], "reference_features": ref,
+                "matches": sm["num_matches"], "homography_inliers":
+                sm["homography_inliers"], "h_median_px": float(np.median(grid)),
+                "h_max_px": float(grid.max()), "npz_rows": npz_rows}
+    log(f"cli sift --up-scale --homography on the rotation pair's PGMs: features "
+        f"{sm['features']} (float pair at the CLI's config: {ref}), matches "
+        f"{sm['num_matches']}, homography inliers {sm['homography_inliers']}, H vs "
+        f"H_gt median {sift_res['h_median_px']:.4f} px, max "
+        f"{sift_res['h_max_px']:.4f} px")
+    gates.check(rc_sift == 0, f"cli sift: exit code {rc_sift}")
+    for i in (0, 1):
+        gates.check(sm["features"][i] >= 0.9 * ref[i],
+                    f"cli sift: features {sm['features'][i]} < 90% of {ref[i]}")
+        gates.check(npz_rows[i] == sm["features"][i], "cli sift: npz rows")
+    gates.check(sm["homography_inliers"] >= 0.5 * sm["num_matches"] > 0,
+                "cli sift: homography inliers")
+    gates.check(sift_res["h_median_px"] <= MAX_CLI_H_MEDIAN_PX,
+                f"cli sift: H median error {sift_res['h_median_px']:.4f} px")
+    log(f"launches in the CLI runs: {launches}")
+    check_path_launches("cli", launches, gates)
+    # The package default as it stands (4,096 hypotheses at 1e-6).
+    imgs = [torch.as_tensor(pair[k], device=dev) for k in ("img1", "img2", "K")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = two_view.run_two_view(*imgs, PipelineConfig(), seed=0)
+    torch.cuda.synchronize()
+    dflt = {"seed": 0, "ms": (time.perf_counter() - t0) * 1e3,
+            "matches": int(r.num_matches), "inliers": int(r.num_inliers),
+            "valid": int(r.point_valid.sum()),
+            "px": math.sqrt(max(float(r.reproj_err), 0.0) / 2.0) * float(pair["K"][0, 0]),
+            "finite": bool(torch.isfinite(r.points).all())}
+    dflt["rot_deg"], dflt["tdir_deg"] = pose_errors_deg(
+        r.R.cpu().numpy(), r.t.cpu().numpy(), pair["R"], pair["t"])
+    log(f"run_two_view at PipelineConfig(): matches {dflt['matches']} inliers "
+        f"{dflt['inliers']} valid {dflt['valid']} px {dflt['px']:.4f} rot "
+        f"{dflt['rot_deg']:.4f} deg tdir {dflt['tdir_deg']:.4f} deg, "
+        f"{dflt['ms']:.1f} ms")
+    gates.check(dflt["finite"], "PipelineConfig(): non-finite points")
+    gate_two_view([dflt], JAX_DEFAULT, gates, "PipelineConfig()")
+    return {"median": med, "seeds": rows, "sift": sift_res,
+            "pipeline_config_default": dflt}, launches
+
+
 def dino(cfg, gates, dev):
-    """Phase 6: bench.py's gates on the dino pair, where present."""
+    """Phase 9: bench.py's gates on the dino pair, where present."""
     import torch
 
     d = os.environ.get("SFM_DINO_DIR")
@@ -544,7 +1013,7 @@ def dino(cfg, gates, dev):
     if not (os.path.exists(p1) and os.path.exists(p2)):
         log(f"dino fixture absent in {d}: phase skipped")
         return None
-    from sfm_tpu.io.image_io import load_gray
+    from sfm_tpu_torch.io.image_io import load_gray
 
     img1 = torch.as_tensor(load_gray(p1), device=dev)
     img2 = torch.as_tensor(load_gray(p2), device=dev)
@@ -584,7 +1053,7 @@ def main() -> int:
     lib = _cuda.library()
     log(f"build: {lib.path.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "smem" in line:
             log("  ptxas: " + line.strip())
 
     gates = Gates()
@@ -597,33 +1066,44 @@ def main() -> int:
     held = {"bench": hold_kernels(img1, torch.as_tensor(pair["img2"], device=dev),
                                   cfg.sift, gates, "bench path")}
     check_odd_scale_down(img1, gates)
-    launches, med, rows = end_to_end(pair, cfg, gates, dev, card)
+    launches = {}
+    launches["bench"], med, rows = end_to_end(pair, cfg, gates, dev, card)
     up, held["upscale"] = upscale_path(rpair, gates, dev, card)
-    # One record per kernel: the largest error over both paths' shapes;
-    # times at the bench path's shapes (K7's at the up-scale path's).
+    launches["upscale"] = up["launches"]
+    api, launches["module_api"], held["module_api"] = module_api(img1, cfg.sift,
+                                                                  gates, dev)
+    win = upscale_window_path(rpair, up, gates, dev, card)
+    launches["upscale_window"] = win["launches"]
+    cli_res, launches["cli"] = cli_phase(pair, rpair, gates, dev, card)
+    # One record per kernel: the largest error over every shape it was
+    # held at; times and bounds at the bench path's shapes (K7's at the
+    # up-scale path's, K8's at the module API's, the only main path that
+    # launches it); launches summed over the main paths' runs.
     records = []
     for name in KERNEL_SOURCES:
         at = {p: h[name] for p, h in held.items() if name in h}
-        rec = dict(at.get("bench", at["upscale"]))
+        rec = dict(at[TIMED_AT.get(name, "bench")])
         rec["max_abs_err"] = max(r["max_abs_err"] for r in at.values())
         rec["held_at"] = at
-        rec["launches_by_path"] = {"bench": launches[name],
-                                   "upscale": up["launches"][name]}
+        rec["launches_by_path"] = {p: n[name] for p, n in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+        gates.check(rec["launches"] > 0, f"kernel {name} launched on no main path")
         records.append(rec)
     dino_res = dino(cfg, gates, dev)
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "kernels": records, "median": med,
-                   "seeds": rows, "upscale": up, "dino": dino_res,
+                   "seeds": rows, "upscale": up, "module_api": api,
+                   "upscale_window": win, "cli": cli_res, "dino": dino_res,
                    "gate_failures": gates.failures}, fh, indent=1, default=float)
     if gates.failures:
         log(f"{len(gates.failures)} gate(s) failed")
         return 1
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")} for r in records]}))
+                           "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")} for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,22 +4,25 @@ two-view main path on one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 profile_port.py [--pairs 5]
+    python3 profile_port.py [--pairs 5] [--tvote-rounds N]
 
 Drives ``sfm_tpu_torch`` with ``chip_smoke.py``'s ``slice_config``
-(bench.py's own config) on the 720 x 576 synthetic pair
+(bench.py's own config; ``--tvote-rounds`` sets its translation re-vote
+rounds, 0 in the bench, 1 in the package default) on the 720 x 576
+synthetic pair
 (``tests/synthetic_pair.py``) and prints, per stage (per-image detect,
 which includes the K1/K2 base chain, and sample, match, geometry), the
 median host-clock milliseconds around synchronized calls; then
 profiles one pair with ``torch.profiler`` and prints the device busy
 share, the number of kernel launches per stage and the top operators
 by device time; a JSON summary goes to
-``chiprun_out/profile_port.json``.
+``chiprun_out/profile_port_tvote<N>.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -37,6 +40,7 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--tvote-rounds", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from sfm_tpu_torch.models import two_view
@@ -45,7 +49,7 @@ def main() -> int:
     from synthetic_pair import synthetic_pair
 
     card = card_line()
-    cfg = slice_config()
+    cfg = dataclasses.replace(slice_config(), tvote_rounds=args.tvote_rounds)
     dev = torch.device("cuda", 0)
     pair = synthetic_pair(576, 720, seed=0)
     img1, img2, K = (torch.as_tensor(pair[k], device=dev)
@@ -86,7 +90,7 @@ def main() -> int:
     med = {k: statistics.median(v) for k, v in times.items()}
     med["detect"] *= 2   # two images per pair
     med["sample"] *= 2
-    print(f"card: {card}")
+    print(f"card: {card}; tvote_rounds={cfg.tvote_rounds}")
     print(f"pair wall (ms, median of {args.pairs}, stages synchronized): "
           f"{statistics.median(walls):.2f}")
     for k, v in med.items():
@@ -127,8 +131,9 @@ def main() -> int:
     print(table)
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_port.json"), "w") as fh:
-        json.dump({"card": card, "stage_ms": med,
+    name = f"profile_port_tvote{cfg.tvote_rounds}.json"
+    with open(os.path.join(out, name), "w") as fh:
+        json.dump({"card": card, "tvote_rounds": cfg.tvote_rounds, "stage_ms": med,
                    "pair_wall_ms": statistics.median(walls),
                    "profiled_wall_ms": wall_us / 1e3,
                    "device_busy_ms": busy_us / 1e3,

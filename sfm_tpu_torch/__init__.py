@@ -2,9 +2,9 @@
 
 The package mirrors ``sfm_tpu``'s layout (``ops``, ``sift``,
 ``geometry``, ``models``, ``utils``) so each module's counterpart is
-easy to find.  It imports ``torch`` and never ``jax``; the only pieces
-it shares with the JAX package are the configuration dataclasses
-(``sfm_tpu.config``) and the numpy image loader (``sfm_tpu.io``).
+easy to find.  It imports ``torch`` and never ``jax``, and nothing of
+the JAX package: it keeps its own copies of the configuration
+dataclasses (``config.py``) and the numpy image I/O (``io/``).
 
 Every Pallas kernel on the ported path has a hand-written CUDA kernel
 for Hopper (``csrc/``) beside a plain PyTorch version of the same

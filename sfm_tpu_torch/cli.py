@@ -1,0 +1,282 @@
+"""Command-line driver of the port (counterpart of ``sfm_tpu/cli.py``):
+reconstruct from image files and export a PLY and JSON metrics, or run
+the standalone SIFT demo.  The same subcommands and options as the JAX
+package's driver, with ``--device`` (default ``cuda``) in place of its
+``--platform`` backend switch: without a card the command raises, and
+it runs on the CPU only when asked to with ``--device cpu``.
+
+Usage:
+  python -m sfm_tpu_torch reconstruct IMG1 IMG2 \\
+      --focal 2360 [--cx CX --cy CY] --out cloud.ply [--metrics m.json]
+  python -m sfm_tpu_torch sift IMG [IMG2] [--thresh 2.0] [--up-scale] \\
+      [--out feats.npz] [--metrics out.json] [--homography]
+
+Not ported yet, and refused with ``NotImplementedError``: reconstruct
+with 3+ images (``models/incremental.py``), ``--mesh`` and
+``--distributed`` (``parallel/``) and ``--checkpoint``
+(``utils/checkpoint.py``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+
+
+def _device(name):
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device; pass --device cpu "
+                           "to run on the CPU")
+    return dev
+
+
+def _device_name(dev):
+    import torch
+
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _build_K(args, w, h):
+    import numpy as np
+
+    cx = args.cx if args.cx is not None else w / 2.0
+    cy = args.cy if args.cy is not None else h / 2.0
+    return np.array([[args.focal, 0, cx], [0, args.focal, cy], [0, 0, 1]],
+                    np.float32)
+
+
+def _load_images(paths):
+    from sfm_tpu_torch.io import image_io, native
+
+    if native.available() and all(
+            str(p).lower().endswith((".ppm", ".pgm")) for p in paths):
+        batch = native.load_gray_batch(paths)
+        return [batch[i] for i in range(batch.shape[0])]
+    return [image_io.load_gray(p) for p in paths]
+
+
+def _emit(metrics, timer, path):
+    metrics["stage_times"] = timer.summary()
+    out = json.dumps(metrics, indent=2)
+    print(out)
+    if path:
+        with open(path, "w") as f:
+            f.write(out)
+
+
+def cmd_reconstruct(args):
+    if len(args.images) < 2:
+        raise ValueError("reconstruct needs at least two images")
+    if len(args.images) > 2:
+        raise NotImplementedError(
+            "reconstruct with 3+ images: incremental SfM (models/incremental.py) "
+            "is not ported yet")
+    if args.mesh or args.distributed:
+        raise NotImplementedError(
+            "--mesh / --distributed: the distributed layer (parallel/) is not "
+            "ported yet")
+    if args.checkpoint:
+        raise NotImplementedError(
+            "--checkpoint: map checkpoints (utils/checkpoint.py) are not ported "
+            "yet")
+    dev = _device(args.device)
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu_torch.models import two_view
+    from sfm_tpu_torch.utils.timing import StageTimer, sync
+
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    imgs = _load_images(args.images)
+    h, w = imgs[0].shape
+    K = _build_K(args, w, h)
+    cfg = PipelineConfig(
+        sift=SiftConfig(max_pts_per_octave=args.max_pts, thresh=args.thresh,
+                        num_octaves=args.octaves),
+        ransac=RansacConfig(n_hyps=args.ransac_hyps, threshold=args.ransac_thresh),
+    )
+    timer.record("load_images", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    res = two_view.run_two_view(*(torch.as_tensor(a, device=dev)
+                                  for a in (imgs[0], imgs[1], K)),
+                                cfg, seed=args.seed)
+    sync(res)
+    timer.record("pipeline", time.perf_counter() - t0)
+    points = res.points.cpu().numpy()
+    valid = res.point_valid.cpu().numpy()
+    err_px = math.sqrt(max(float(res.reproj_err), 0.0) / 2) * float(args.focal)
+    metrics = {
+        "mode": "two_view",
+        "device": _device_name(dev),
+        "num_matches": int(res.num_matches),
+        "num_inliers": int(res.num_inliers),
+        "num_points": int(valid.sum()),
+        "mean_reproj_px": round(err_px, 4),
+        "R": np.round(res.R.cpu().numpy(), 6).tolist(),
+        "t": np.round(res.t.cpu().numpy(), 6).tolist(),
+    }
+    if args.out:
+        from sfm_tpu_torch.io import image_io
+
+        t0 = time.perf_counter()
+        image_io.save_ply(args.out, points, valid=valid.astype(np.uint8))
+        timer.record("export", time.perf_counter() - t0)
+        metrics["ply"] = args.out
+    _emit(metrics, timer, args.metrics)
+    return 0
+
+
+def cmd_sift(args):
+    """Standalone SIFT demo: extract (+ match + homography on a pair)."""
+    dev = _device(args.device)
+    import numpy as np
+    import torch
+
+    from sfm_tpu_torch.config import MatchConfig, SiftConfig
+    from sfm_tpu_torch.sift import frontend, match as match_mod
+    from sfm_tpu_torch.utils.timing import StageTimer
+
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    imgs = _load_images(args.images)
+    timer.record("load_images", time.perf_counter() - t0)
+    cfg = SiftConfig(num_octaves=args.octaves, thresh=args.thresh,
+                     max_pts_per_octave=args.max_pts, up_scale=args.up_scale)
+
+    t0 = time.perf_counter()
+    results = [frontend.extract_sift(torch.as_tensor(im, device=dev), cfg)
+               for im in imgs]
+    counts = [int(r.keypoints.valid.sum()) for r in results]
+    timer.record("extract", time.perf_counter() - t0)
+    metrics = {"mode": "sift", "device": _device_name(dev),
+               "num_images": len(imgs), "features": counts}
+
+    if len(imgs) == 2:
+        t0 = time.perf_counter()
+        f1, f2 = results
+        m = match_mod.match(f1.descriptors, f2.descriptors, f1.keypoints.valid,
+                            f2.keypoints.valid, MatchConfig())
+        n_match = int(m.valid.sum())
+        timer.record("match", time.perf_counter() - t0)
+        metrics["num_matches"] = n_match
+        metrics["match_pct"] = round(100.0 * n_match / max(counts[0], 1), 1)
+
+        if args.homography:
+            from sfm_tpu_torch.geometry import homography
+
+            t0 = time.perf_counter()
+            uv1 = torch.stack([f1.keypoints.x, f1.keypoints.y], dim=-1)
+            uv2 = torch.stack([f2.keypoints.x, f2.keypoints.y], dim=-1)[m.index]
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(args.seed)
+            res = homography.ransac_homography(
+                uv1, uv2, m.valid, generator=gen, n_hyps=1024,
+                threshold=float(args.homography_thresh) ** 2)
+            n_inl = int(res.num_inliers)
+            timer.record("homography", time.perf_counter() - t0)
+            metrics["homography_inliers"] = n_inl
+            metrics["H"] = np.round(res.H.cpu().numpy(), 6).tolist()
+
+    if args.out:
+        t0 = time.perf_counter()
+        arrays = {}
+        for i, r in enumerate(results):
+            kp = r.keypoints
+            v = kp.valid.cpu().numpy()
+            arrays.update({
+                f"x{i}": kp.x.cpu().numpy()[v],
+                f"y{i}": kp.y.cpu().numpy()[v],
+                f"scale{i}": kp.scale.cpu().numpy()[v],
+                f"orientation{i}": kp.orientation.cpu().numpy()[v],
+                f"descriptors{i}": r.descriptors.cpu().numpy()[v],
+            })
+        np.savez_compressed(args.out, **arrays)
+        timer.record("export", time.perf_counter() - t0)
+        metrics["out"] = args.out
+    _emit(metrics, timer, args.metrics)
+    return 0
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="sfm_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def device_option(sp):
+        sp.add_argument("--device", default="cuda",
+                        help="torch device to run on (default cuda; the command "
+                             "raises without a card unless given cpu)")
+
+    r = sub.add_parser("reconstruct", help="reconstruct from 2 images")
+    r.add_argument("images", nargs="+",
+                   help="input images (2 = two-view; 3+ = incremental, not ported)")
+    r.add_argument("--focal", type=float, default=2360.0,
+                   help="focal length in px (reference dino default 2360)")
+    r.add_argument("--cx", type=float, default=None)
+    r.add_argument("--cy", type=float, default=None)
+    r.add_argument("--out", default=None, help="output PLY path")
+    r.add_argument("--metrics", default=None, help="write metrics JSON here")
+    r.add_argument("--checkpoint", default=None,
+                   help="save map checkpoint (npz; not ported)")
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--octaves", type=int, default=5)
+    r.add_argument("--thresh", type=float, default=1.0)
+    r.add_argument("--max-pts", type=int, default=1024)
+    r.add_argument("--ransac-hyps", type=int, default=1024)
+    r.add_argument("--ransac-thresh", type=float, default=3e-6)
+    r.add_argument("--ba-iters", type=int, default=20,
+                   help="bundle-adjustment iterations (incremental; not ported)")
+
+    def _pair(s):
+        a, b = s.split(",")
+        return (int(a), int(b))
+
+    r.add_argument("--closure", type=_pair, action="append", default=[],
+                   metavar="I,J",
+                   help="loop-closure frame pair (incremental; not ported)")
+    r.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="device mesh (the distributed layer; not ported)")
+    r.add_argument("--distributed", action="store_true",
+                   help="multi-process run (the distributed layer; not ported)")
+    device_option(r)
+    r.set_defaults(fn=cmd_reconstruct)
+
+    s = sub.add_parser("sift", help="standalone SIFT extract/match demo")
+    s.add_argument("images", nargs="+", help="1 image = extract only; "
+                   "2 = extract + ratio-test match")
+    s.add_argument("--octaves", type=int, default=5)
+    s.add_argument("--thresh", type=float, default=2.0, help="DoG threshold")
+    s.add_argument("--max-pts", type=int, default=2048,
+                   help="keypoint capacity per octave")
+    s.add_argument("--up-scale", action="store_true",
+                   help="2x upscale before the pyramid")
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--homography", action="store_true",
+                   help="fit a RANSAC homography to the matches")
+    s.add_argument("--homography-thresh", type=float, default=3.0,
+                   help="inlier gate in px")
+    s.add_argument("--out", default=None,
+                   help="write features (x/y/scale/orientation/descriptors "
+                        "per image) to this .npz")
+    s.add_argument("--metrics", default=None, help="write stats JSON here")
+    device_option(s)
+    s.set_defaults(fn=cmd_sift)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

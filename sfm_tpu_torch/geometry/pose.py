@@ -1,8 +1,13 @@
 """Pose recovery from an essential matrix (counterpart of
-``sfm_tpu/geometry/pose.py``: ``pose_candidates`` and ``recover_pose``)."""
+``sfm_tpu/geometry/pose.py``: ``pose_candidates``, ``recover_pose`` and
+the translation re-vote ``cheirality_t_vote``)."""
 
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
 from sfm_tpu_torch.ops import linalg
@@ -63,3 +68,61 @@ def recover_pose(E, x1, x2, weights=None, *, sweeps: int = 8):
         "front": good[best],
         "finite": finite[best],
     }
+
+
+@functools.lru_cache(maxsize=4)
+def _fibonacci_sphere(m: int) -> np.ndarray:
+    """[m, 3] float32 near-uniform unit directions (golden-angle spiral)."""
+    i = np.arange(m) + 0.5
+    phi = np.pi * (1.0 + 5.0 ** 0.5) * i
+    z = 1.0 - 2.0 * i / m
+    r = np.sqrt(np.maximum(1.0 - z * z, 0.0))
+    dirs = np.stack([r * np.cos(phi), r * np.sin(phi), z], -1).astype(np.float32)
+    dirs.flags.writeable = False   # cached: shared by every caller
+    return dirs
+
+
+@f32_matmul
+def cheirality_t_vote(R, x1, x2, mask, threshold, *, n_dirs: int = 1024):
+    """Max-cheirality translation direction for a fixed rotation.
+
+    On rotation-dominant pairs the Sampson objective is nearly flat in
+    the translation direction, and local refinement can stop in a valley
+    whose pose puts many inliers behind a camera; this searches the
+    direction globally instead.  For fixed R the midpoint depths
+    (``triangulate.midpoint_depths``) are linear in C2 = -R^T t, so
+    cheirality over a Fibonacci bank of ``n_dirs`` directions is two
+    [N, 3] x [3, M] products, and the epipolar term batches through
+    ``epipolar_residuals``.
+
+    R [3, 3]; x1, x2 [N, 3] normalized homogeneous correspondences (a
+    compacted inlier subset is fine); mask [N] bool rows to count;
+    threshold the epipolar residual gate.  Returns a dict with t [3]
+    (the winning direction: the lowest index among equal scores, as
+    ``jnp.argmax`` takes it), E [3, 3] (= [t]_x R, ||E|| = sqrt(2)),
+    score (int32 count) and ok [N] bool (the winner's support).
+    """
+    from sfm_tpu_torch.geometry import epipolar
+
+    ts = torch.tensor(_fibonacci_sphere(n_dirs), device=R.device)      # [M, 3]
+    b = torch.einsum("ji,nj->ni", R, x2)
+    aa = torch.sum(x1 * x1, -1)
+    bb = torch.sum(b * b, -1)
+    ab = torch.sum(x1 * b, -1)
+    det = aa * bb - ab * ab
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    A = (bb[:, None] * x1 - ab[:, None] * b) / det[:, None]
+    B = (ab[:, None] * x1 - aa[:, None] * b) / det[:, None]
+    C2s = -(ts @ R)                                        # [M, 3]
+    z1 = A @ C2s.T                                         # [N, M]
+    z2 = B @ C2s.T
+    Es = linalg.cross_matrix(ts) @ R                       # [M, 3, 3]
+    Es = Es * (math.sqrt(2.0)
+               / torch.linalg.vector_norm(Es, dim=(1, 2), keepdim=True))
+    res = epipolar.epipolar_residuals(Es, x1, x2)          # [M, N]
+    ok = (res.T < threshold) & mask[:, None] & (z1 > 0) & (z2 > 0)
+    score = ok.sum(0)                                      # [M]
+    iota = torch.arange(score.shape[0], device=score.device)
+    m = torch.where(score == score.max(), iota, score.shape[0]).min()
+    return {"t": ts[m], "E": Es[m], "score": score[m].to(torch.int32),
+            "ok": ok[:, m]}

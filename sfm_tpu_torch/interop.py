@@ -1,8 +1,9 @@
 """State carried between the JAX package and the port.
 
 The system has no learned weights: what crosses between ``sfm_tpu``
-and ``sfm_tpu_torch`` is the configuration (the shared dataclasses of
-``sfm_tpu.config``) and the pipeline's intermediate state — detections,
+and ``sfm_tpu_torch`` is the configuration (dataclasses with the same
+fields on both sides; ``config_to_torch``) and the pipeline's
+intermediate state — detections,
 keypoints / SIFT results, matches, correspondences ``(uv1, uv2, mask)``,
 RANSAC minimal-set indices, homography fits and two-view results.  The
 JAX side hands these over as numpy arrays (``np.asarray`` of its
@@ -18,9 +19,12 @@ come back as int32, the JAX package's index type.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from sfm_tpu_torch import config
 from sfm_tpu_torch.geometry.homography import HomographyResult
 from sfm_tpu_torch.models.two_view import TwoViewResult
 from sfm_tpu_torch.sift.detect import Detections
@@ -69,3 +73,21 @@ def to_numpy(obj):
         a = obj.detach().cpu().numpy()
         return a.astype(np.int32) if a.dtype == np.int64 else a
     return np.asarray(obj)
+
+
+_CONFIG_TYPES = {cls.__name__: cls for cls in
+                 (config.SiftConfig, config.MatchConfig, config.RansacConfig,
+                  config.PipelineConfig)}
+
+
+def config_to_torch(cfg):
+    """A JAX-side config dataclass (nested ones included) -> the port's
+    class of the same name, field by field."""
+    cls = _CONFIG_TYPES.get(type(cfg).__name__)
+    if cls is None or not dataclasses.is_dataclass(cfg):
+        raise TypeError(f"no port config for {type(cfg).__name__}")
+    vals = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        vals[f.name] = config_to_torch(v) if dataclasses.is_dataclass(v) else v
+    return cls(**vals)

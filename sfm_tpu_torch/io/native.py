@@ -1,0 +1,104 @@
+"""ctypes bindings for the native C++ I/O runtime (native/sfm_io.cpp).
+
+Builds on demand with make; every entry point has a pure-Python
+fallback in sfm_tpu_torch.io.image_io, so the package works without a
+toolchain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import subprocess
+
+import numpy as np
+
+_NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
+_LIB_PATH = _NATIVE_DIR / "libsfm_io.so"
+_lib = None
+_tried = False
+
+
+def _load():
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    if not _LIB_PATH.exists():
+        try:
+            subprocess.run(
+                ["make", "-C", str(_NATIVE_DIR)],
+                check=True, capture_output=True, timeout=120,
+            )
+        except Exception:
+            return None
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+    except OSError:
+        return None
+    lib.sfm_pnm_size.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long)
+    ]
+    lib.sfm_pnm_size.restype = ctypes.c_int
+    lib.sfm_load_gray_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_long,
+        ctypes.c_int,
+    ]
+    lib.sfm_load_gray_batch.restype = ctypes.c_int
+    lib.sfm_write_ply.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_long,
+    ]
+    lib.sfm_write_ply.restype = ctypes.c_long
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def load_gray_batch(paths, n_threads: int = 0) -> np.ndarray:
+    """Parallel batch decode of same-sized PNMs -> [N, H, W] f32."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native io unavailable")
+    paths = [str(p) for p in paths]
+    w = ctypes.c_long()
+    h = ctypes.c_long()
+    rc = lib.sfm_pnm_size(paths[0].encode(), ctypes.byref(w), ctypes.byref(h))
+    if rc != 0:
+        raise ValueError(f"cannot parse PNM header: {paths[0]}")
+    n = len(paths)
+    out = np.zeros((n, h.value, w.value), np.float32)
+    arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    ok = lib.sfm_load_gray_batch(
+        arr, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        w.value, h.value, n_threads,
+    )
+    if ok != n:
+        raise ValueError(f"decoded {ok}/{n} images")
+    return out
+
+
+def save_ply(path, points, valid=None) -> int:
+    """Binary PLY export (every vertex white); returns number of vertices
+    written."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native io unavailable")
+    pts = np.ascontiguousarray(points, np.float32)
+    n = pts.shape[0]
+    val_p = None
+    if valid is not None:
+        valid = np.ascontiguousarray(valid, np.uint8)
+        val_p = valid.ctypes.data_as(ctypes.c_char_p)
+    count = lib.sfm_write_ply(
+        str(path).encode(),
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        None, val_p, n,
+    )
+    if count < 0:
+        raise IOError(f"PLY write failed: {path}")
+    return int(count)

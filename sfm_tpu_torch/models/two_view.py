@@ -3,8 +3,9 @@
 
 SIFT x2 -> fused top-2 matcher -> compaction to ``geometry_cap`` slots
 -> RANSAC E -> multi-start probe refinement -> refine rounds ->
-cheirality vote -> triangulation.  PyTorch runs eagerly, so the JAX
-package's two jitted programs become plain function calls; the path
+translation re-vote rounds -> cheirality vote -> triangulation.
+PyTorch runs eagerly, so the JAX package's two jitted programs become
+plain function calls; the path
 stays free of host synchronisation (selections use ``torch.where``,
 counts stay on the device) so the card is fed without stalls.
 """
@@ -16,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from sfm_tpu.config import PipelineConfig
+from sfm_tpu_torch.config import PipelineConfig
 from sfm_tpu_torch.geometry import (camera, epipolar, pose, ransac, refine,
                                     triangulate as tri)
 from sfm_tpu_torch.ops.compact import compaction_order, stable_topk_indices
@@ -36,13 +37,6 @@ class TwoViewResult(NamedTuple):
     num_inliers: torch.Tensor
     num_matches: torch.Tensor
     reproj_err: torch.Tensor   # mean squared reprojection error (normalized)
-
-
-def _check_geometry_cfg(cfg: PipelineConfig):
-    if cfg.tvote_rounds > 0:
-        raise NotImplementedError(
-            "tvote_rounds > 0 (the translation re-vote, pose.cheirality_t_"
-            "vote) is not ported yet; use tvote_rounds=0")
 
 
 def gather_correspondences(kp1, kp2, matches):
@@ -76,7 +70,6 @@ def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
     ``generator`` draws the RANSAC minimal sets; ``minimal_sets``
     ([n_hyps, 8] indices) replaces the draw (parity tests).
     """
-    _check_geometry_cfg(cfg)
     K_inv = camera.inv_intrinsics(K)
     x1 = camera.normalize_points(uv1, K_inv)
     x2 = camera.normalize_points(uv2, K_inv)
@@ -173,6 +166,30 @@ def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
         R_cur, t_cur = p2["R"], p2["t"]
         w = valid_k
 
+    # Translation re-vote rounds: re-vote t globally for the best round's
+    # R (pose.cheirality_t_vote), enter the voted E as a candidate and
+    # re-refine from the voted pose; then a vote-only half round against
+    # the final best R.  _consider is monotone, so neither can lose.
+    maskv = wv > 0
+
+    def vote_candidate():
+        Rb = best[3]
+        vote = pose.cheirality_t_vote(Rb, x1v, x2v, maskv, rc.threshold,
+                                      n_dirs=cfg.tvote_dirs)
+        inl_s, valid_s, score_s = score_E(vote["E"], Rb, vote["t"])
+        return (score_s, vote["E"], inl_s, Rb, vote["t"]), valid_s
+
+    for _ in range(cfg.tvote_rounds):
+        cand, valid_s = vote_candidate()
+        best = _consider(cand, best)
+        ref = refine.refine_relative_pose(cand[3], cand[4], x1, x2,
+                                          weights=valid_s, iters=cfg.refine_iters)
+        p2 = pose.recover_pose(ref.E, x1v, x2v, weights=wv)
+        inl, valid_k, score = score_E(ref.E, p2["R"], p2["t"])
+        best = _consider((score, ref.E, inl, p2["R"], p2["t"]), best)
+    if cfg.tvote_rounds > 0:
+        best = _consider(vote_candidate()[0], best)
+
     _, E_fin, inl, _, _ = best
     pf = pose.recover_pose(E_fin, x1, x2, weights=inl.to(x1.dtype))
     R_fin, t_fin = pf["R"], pf["t"]
@@ -204,7 +221,6 @@ def match_stage(s1, s2, cfg: PipelineConfig):
 
 def frontend_stage(img1, img2, cfg: PipelineConfig = PipelineConfig()):
     """SIFT on both images, then the match stage."""
-    _check_geometry_cfg(cfg)
     s1 = frontend.extract_sift(img1, cfg.sift)
     s2 = frontend.extract_sift(img2, cfg.sift)
     return match_stage(s1, s2, cfg)

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # name -> launches since the last reset, one entry per kernel wrapper.
 LAUNCHES = {"blur9": 0, "scale_down": 0, "scale_up": 0, "detect_maps": 0,
             "fused_orient_descriptor": 0, "descriptor_sample": 0,
-            "match_top2": 0}
+            "match_top2": 0, "orientation_histogram_sample": 0,
+            "fused_orient_descriptor_win": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +53,11 @@ _SIGNATURES = {
     # d1, ori1, ori2, dup, stream
     "sfm_fused_orient_descriptor": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                     _P, _P, _P, _P, _P, _P, _P),
+    "sfm_fused_orient_descriptor_win": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                        _P, _P, _P, _P, _P, _P, _P),
+    # img, H, W, Hp, Wp, x, y, scale, count, K, out, stream
+    "sfm_orientation_histogram_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                         _P, _P),
     # atlas, H, W, Hp, Wp, x, y, scale, ori, count, K, w2d, wsp, out, stream
     "sfm_descriptor_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                               _P, _P, _P, _P),

@@ -47,47 +47,49 @@ def bilinear_sample(img, x, y):
             + v10 * fy * (1 - fx) + v11 * fy * fx)
 
 
-# Patch geometry of the TPU sampling kernels (sfm_tpu/ops/pallas_sample.py
-# fused_orient_descriptor / descriptor_sample): a 40-column, 48-row patch
-# whose origin depends only on the keypoint.
-PATCH_COLS = 40
-PATCH_ROWS = 48
+# Patch geometry of the TPU sampling kernels (sfm_tpu/ops/pallas_sample.py):
+# a P-column, (P + 8)-row patch whose origin depends only on the
+# keypoint.  The descriptor kernels (K4, K5, K9) take P = 40, the
+# orientation kernel (K8) P = 16.
+DESC_P = 40
+ORI_P = 16
 
 
-def padded_dims(H: int, W: int):
-    """The TPU kernels' padded atlas size (rows to 8, columns to 128)."""
-    return (max(-(-H // 8) * 8, PATCH_ROWS),
-            max(-(-W // 128) * 128, PATCH_COLS))
+def padded_dims(H: int, W: int, P: int = DESC_P):
+    """The TPU kernels' padded atlas size: rows to a multiple of 8 and at
+    least P + 8, columns to a multiple of 128 and at least P."""
+    return (max(-(-H // 8) * 8, P + 8),
+            max(-(-W // 128) * 128, P))
 
 
-def patch_origin(x, y, H: int, W: int):
+def patch_origin(x, y, H: int, W: int, P: int = DESC_P):
     """Patch origin (x0, y0a) [K] and patch-relative (fx, fy) [K].
 
-    x0 = clip(floor(x) - 19, 0, Wp - 40); rows start at the 8-aligned
-    y0a.  Coordinates relative to an integer origin keep the f32
-    rounding of the sample positions independent of where the keypoint
-    sits in the atlas.
+    x0 = clip(floor(x) - (P/2 - 1), 0, Wp - P); rows start at the
+    8-aligned y0a <= Hp - (P + 8).  Coordinates relative to an integer
+    origin keep the f32 rounding of the sample positions independent of
+    where the keypoint sits in the atlas.
     """
-    Hp, Wp = padded_dims(H, W)
-    half = PATCH_COLS // 2 - 1
-    x0 = torch.clamp(torch.floor(x).to(torch.int64) - half, 0,
-                     max(Wp - PATCH_COLS, 0))
-    y0 = torch.clamp(torch.floor(y).to(torch.int64) - half, 0,
-                     max(Hp - PATCH_COLS, 0))
+    Hp, Wp = padded_dims(H, W, P)
+    half = P // 2 - 1
+    x0 = torch.clamp(torch.floor(x).to(torch.int64) - half, 0, max(Wp - P, 0))
+    y0 = torch.clamp(torch.floor(y).to(torch.int64) - half, 0, max(Hp - P, 0))
     fx = x - x0.to(torch.float32)
     fy = y - y0.to(torch.float32)
     y0a = torch.clamp(torch.clamp(torch.div(y0, 8, rounding_mode="floor") * 8,
-                                  max=Hp - PATCH_ROWS), min=0)
+                                  max=Hp - P - 8), min=0)
     fy = fy + (y0 - y0a).to(torch.float32)
     return x0, y0a, fx, fy
 
 
-def patch_sample(img, x0, y0a, px, py):
+def patch_sample(img, x0, y0a, px, py, P: int = DESC_P):
     """Bilinear samples [K, S] at patch-relative (px, py), clamped to
-    the patch and to the image (the TPU kernels' edge padding)."""
+    the P x (P + 8) patch and to the image (the TPU kernels' edge
+    padding)."""
     H, W = img.shape
-    px = torch.clamp(px, 0.0, PATCH_COLS - 1.0)
-    py = torch.clamp(py, 0.0, PATCH_ROWS - 1.0)
+    rows = P + 8
+    px = torch.clamp(px, 0.0, P - 1.0)
+    py = torch.clamp(py, 0.0, rows - 1.0)
     ixf = torch.floor(px)
     iyf = torch.floor(py)
     fxw = px - ixf
@@ -97,9 +99,9 @@ def patch_sample(img, x0, y0a, px, py):
     x0 = x0[:, None]
     y0a = y0a[:, None]
     gx0 = torch.clamp(x0 + ix, 0, W - 1)
-    gx1 = torch.clamp(x0 + torch.clamp(ix + 1, max=PATCH_COLS - 1), 0, W - 1)
+    gx1 = torch.clamp(x0 + torch.clamp(ix + 1, max=P - 1), 0, W - 1)
     gy0 = torch.clamp(y0a + iy, 0, H - 1)
-    gy1 = torch.clamp(y0a + torch.clamp(iy + 1, max=PATCH_ROWS - 1), 0, H - 1)
+    gy1 = torch.clamp(y0a + torch.clamp(iy + 1, max=rows - 1), 0, H - 1)
     ux = 1.0 - fxw
     uy = 1.0 - fyw
     return (ux * (uy * img[gy0, gx0] + fyw * img[gy1, gx0])

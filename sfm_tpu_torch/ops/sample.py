@@ -1,5 +1,5 @@
-"""K4 and K5: per-keypoint orientation histograms and SIFT descriptors
-sampled from the octave atlas.
+"""K4, K5, K8 and K9: per-keypoint orientation histograms and SIFT
+descriptors sampled from the octave atlas.
 
 K4 ``fused_orient_descriptor`` replaces ``sfm_tpu/ops/pallas_sample.py:
 788 fused_orient_descriptor`` as the frontend runs it (duplicate split,
@@ -9,29 +9,42 @@ two parabolic-interpolated peaks (ties to the lowest bin), the
 ``dup = m2 > 0.8 * m1`` flag, and the raw 128-D descriptor at peak 1.
 K5 ``descriptor_sample`` replaces ``pallas_sample.py:414
 descriptor_sample`` (wide kernel): raw descriptors for a compacted
-list of (x, y, scale, orientation).  Both zero every slot >= ``count``.
+list of (x, y, scale, orientation).  K8 ``orientation_histogram_sample``
+replaces ``pallas_sample.py:578 orientation_histogram_sample``: the raw
+(unsmoothed) [K, 32] histograms alone, on a 16-column patch.  K9
+``fused_orient_descriptor_win`` replaces ``pallas_sample.py:998
+fused_orient_descriptor_win``: K4's function with each keypoint's
+patch staged in shared memory before it is sampled.  All four zero
+every slot >= ``count``.
 
 The TPU kernels recast bilinear sampling as tent-matrix matmuls over a
-40-column patch because the TPU has no gather unit.  The CUDA kernels
-(``csrc/sample.cu``) take the natural GPU form instead: one 128-thread
-block per keypoint gathers its bilinear samples straight from the atlas
-in device memory through the read-only cache, builds the histogram in
-shared memory without atomics (each of 32 threads sums its own bin in
-sample order, so the result is deterministic), finds the peaks in one
-thread, and a device function shared by both kernels computes the
-16 x 16-sample, 4 x 4 x 8 trilinear descriptor (one output bin per
-thread, summed in sample order).  Bound on the card: ~1,500 scattered
-4-byte gathers per keypoint — latency bound on the gathers at the
-main path's 2,560 keypoints; the atlas (4.6 MB) stays in L2.
+P-column patch because the TPU has no gather unit.  The CUDA kernels
+(``csrc/sample.cu``) take the natural GPU form instead:
 
-Sampling reproduces the TPU kernels' patch geometry: origin
-``x0 = clip(floor(x) - 19, 0, Wp - 40)``, rows from an 8-aligned
-``y0a``, coordinates clamped to the 40 x 48 patch, and the atlas edge
-replicated beyond its last row and column — which equals clamping to
-the atlas.  The plain PyTorch versions (the gather forms in
-``sift/orient.py`` and ``sift/describe.py``) evaluate the same
-roundings in the same order (the kernel uses the ``_rn`` intrinsics),
-except the histogram and descriptor sums, which they take with einsum.
+- K4 and K5: one 128-thread block per keypoint gathers its bilinear
+  samples straight from the atlas in device memory through the
+  read-only cache.  Bound on the card: ~1,500 scattered 4-byte gathers
+  per keypoint, latency bound on the gathers; the atlas stays in L2 at
+  the bench's size.
+- K9: one 128-thread block per 4 keypoints first copies their four
+  48 x 40 patches (clamped to the atlas, which is the TPU kernels' edge
+  padding) into shared memory with ``cp.async``, all four before the
+  first is used, then runs K4's device code on samples read from shared
+  memory.  The gathers become 7.7 KB of coalesced row copies per
+  keypoint, and K9 equals K4 bit for bit.
+- K8: one warp per keypoint, four per block; each warp stages its
+  24 x 16 patch in shared memory (1.5 KB), takes the 121 gradient
+  samples from there, and each lane sums one bin in sample order.
+
+Every kernel builds its histograms without atomics (each of 32 threads
+sums its own bin in sample order), so the results are deterministic.
+Sampling reproduces the TPU kernels' patch geometry
+(``ops.image.patch_origin``) with the atlas edge replicated beyond its
+last row and column, which equals clamping to the atlas.  The plain
+PyTorch versions (the gather forms in ``sift/orient.py`` and
+``sift/describe.py``) evaluate the same roundings in the same order
+(the kernels use the ``_rn`` intrinsics), except the histogram and
+descriptor sums, which they take with einsum.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ from __future__ import annotations
 import torch
 
 from sfm_tpu_torch.ops import _cuda
-from sfm_tpu_torch.ops.image import padded_dims, patch_origin
+from sfm_tpu_torch.ops.image import ORI_P, padded_dims, patch_origin
 from sfm_tpu_torch.sift import describe, orient
 
 
@@ -51,17 +64,17 @@ def _live(K, count, device):
 
 
 def fused_orient_descriptor_plain(atlas, x, y, scale, count=None):
-    """Plain PyTorch K4: (d1 [K, 128] raw, ori1 [K], ori2 [K], dup [K])."""
+    """Plain PyTorch K4 (and K9): (d1 [K, 128] raw, ori1 [K], ori2 [K],
+    dup [K])."""
     H, W = atlas.shape
     x0, y0a, fx, fy = patch_origin(x, y, H, W)
-    h = orient.orientation_histograms(atlas, x0, y0a, fx, fy, scale)
-    ori1, ori2, dup = orient.orientations_from_histograms(h)
-    d1 = describe.raw_descriptors(atlas, x0, y0a, fx, fy, scale, ori1)
+    h = orient.patch_histograms(atlas, x0, y0a, fx, fy, scale)
     live = _live(x.shape[0], count, atlas.device)
+    ori1, ori2, dup = orient.orientations_from_histograms(h, live)
+    d1 = describe.raw_descriptors(atlas, x0, y0a, fx, fy, scale, ori1)
     zero = torch.zeros_like(ori1)
     return (torch.where(live[:, None], d1, torch.zeros_like(d1)),
-            torch.where(live, ori1, zero), torch.where(live, ori2, zero),
-            dup & live)
+            torch.where(live, ori1, zero), torch.where(live, ori2, zero), dup)
 
 
 def descriptor_sample_plain(atlas, x, y, scale, ori, count=None):
@@ -71,6 +84,15 @@ def descriptor_sample_plain(atlas, x, y, scale, ori, count=None):
     d = describe.raw_descriptors(atlas, x0, y0a, fx, fy, scale, ori)
     live = _live(x.shape[0], count, atlas.device)
     return torch.where(live[:, None], d, torch.zeros_like(d))
+
+
+def orientation_histogram_sample_plain(img, x, y, scale, count=None):
+    """Plain PyTorch K8: raw [K, 32] histograms, zero rows >= count."""
+    H, W = img.shape
+    x0, y0a, fx, fy = patch_origin(x, y, H, W, ORI_P)
+    h = orient.patch_histograms(img, x0, y0a, fx, fy, scale, ORI_P)
+    live = _live(x.shape[0], count, img.device)
+    return torch.where(live[:, None], h, torch.zeros_like(h))
 
 
 def _tables_on(device):
@@ -91,12 +113,9 @@ def _prep(atlas, tensors, count):
     return dev, H, W, K, count
 
 
-def fused_orient_descriptor(atlas, x, y, scale, count=None):
-    """K4: (d1 [K, 128] raw, ori1 [K] deg, ori2 [K] deg, dup [K] bool)
-    for keypoints compacted valid-first (``count`` valid rows; a device
-    scalar, never read on the host)."""
-    if not atlas.is_cuda:
-        return fused_orient_descriptor_plain(atlas, x, y, scale, count)
+def _fused(name, atlas, x, y, scale, count):
+    """Launch K4 (``name`` = "fused_orient_descriptor") or K9
+    ("fused_orient_descriptor_win"): the same C signature."""
     dev, H, W, K, count = _prep(
         atlas, (("x", x), ("y", y), ("scale", scale)), count)
     Hp, Wp = padded_dims(H, W)
@@ -107,14 +126,31 @@ def fused_orient_descriptor(atlas, x, y, scale, count=None):
     dup = torch.empty(K, dtype=torch.bool, device=dev)
     if K == 0:
         return d1, ori1, ori2, dup
-    code = _cuda.library().lib.sfm_fused_orient_descriptor(
+    code = getattr(_cuda.library().lib, "sfm_" + name)(
         atlas.data_ptr(), H, W, Hp, Wp, x.data_ptr(), y.data_ptr(),
         scale.data_ptr(), count.data_ptr(), K, w2d.data_ptr(), wsp.data_ptr(),
         d1.data_ptr(), ori1.data_ptr(), ori2.data_ptr(), dup.data_ptr(),
         _cuda.stream_ptr(dev))
-    _cuda.check(code, "fused_orient_descriptor")
-    _cuda.LAUNCHES["fused_orient_descriptor"] += 1
+    _cuda.check(code, name)
+    _cuda.LAUNCHES[name] += 1
     return d1, ori1, ori2, dup
+
+
+def fused_orient_descriptor(atlas, x, y, scale, count=None):
+    """K4: (d1 [K, 128] raw, ori1 [K] deg, ori2 [K] deg, dup [K] bool)
+    for keypoints compacted valid-first (``count`` valid rows; a device
+    scalar, never read on the host)."""
+    if not atlas.is_cuda:
+        return fused_orient_descriptor_plain(atlas, x, y, scale, count)
+    return _fused("fused_orient_descriptor", atlas, x, y, scale, count)
+
+
+def fused_orient_descriptor_win(atlas, x, y, scale, count=None):
+    """K9: K4's function and outputs, each keypoint's 48 x 40 patch
+    staged in shared memory by ``cp.async`` before it is sampled."""
+    if not atlas.is_cuda:
+        return fused_orient_descriptor_plain(atlas, x, y, scale, count)
+    return _fused("fused_orient_descriptor_win", atlas, x, y, scale, count)
 
 
 def descriptor_sample(atlas, x, y, scale, ori, count=None):
@@ -135,4 +171,24 @@ def descriptor_sample(atlas, x, y, scale, ori, count=None):
         wsp.data_ptr(), out.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(code, "descriptor_sample")
     _cuda.LAUNCHES["descriptor_sample"] += 1
+    return out
+
+
+def orientation_histogram_sample(img, x, y, scale, count=None):
+    """K8: raw (unsmoothed) [K, 32] Gaussian-weighted gradient histograms
+    of keypoints compacted valid-first, on the 16-column patch; rows >=
+    ``count`` (a device scalar, never read on the host) are zero."""
+    if not img.is_cuda:
+        return orientation_histogram_sample_plain(img, x, y, scale, count)
+    dev, H, W, K, count = _prep(img, (("x", x), ("y", y), ("scale", scale)), count)
+    Hp, Wp = padded_dims(H, W, ORI_P)
+    out = torch.empty((K, 32), dtype=torch.float32, device=dev)
+    if K == 0:
+        return out
+    code = _cuda.library().lib.sfm_orientation_histogram_sample(
+        img.data_ptr(), H, W, Hp, Wp, x.data_ptr(), y.data_ptr(),
+        scale.data_ptr(), count.data_ptr(), K, out.data_ptr(),
+        _cuda.stream_ptr(dev))
+    _cuda.check(code, "orientation_histogram_sample")
+    _cuda.LAUNCHES["orientation_histogram_sample"] += 1
     return out

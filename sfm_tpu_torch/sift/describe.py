@@ -1,5 +1,7 @@
 """SIFT descriptors, 128-D = 4 x 4 cells x 8 orientations (counterpart
-of ``sfm_tpu/sift/describe.py``), in the gather form that serves as the
+of ``sfm_tpu/sift/describe.py``).  ``extract_descriptors`` takes the JAX
+package's Pallas route on every device (compact, K5, scatter back,
+normalize); ``raw_descriptors`` is the gather form that serves as the
 plain version of K4's descriptor half and of K5.
 
 Semantics: a 16 x 16 sample grid rotated by the keypoint orientation
@@ -18,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from sfm_tpu_torch.ops.compact import compaction_order
 from sfm_tpu_torch.ops.image import patch_sample
 
 _RAD = 2.0 * math.pi / 360.0
@@ -86,3 +89,25 @@ def raw_descriptors(img, x0, y0a, fx, fy, scale, orientation_deg):
     T = grad[..., None] * wa                                   # [K, 256, 8]
     desc = torch.einsum("ksa,sp->kpa", T, torch.as_tensor(WSP, device=dev))
     return desc.reshape(-1, 128)
+
+
+def extract_descriptors(img, x, y, scale, orientation_deg, *, valid=None,
+                        use_pallas=False):
+    """[K, 128] L2-normalized SIFT descriptors of keypoints at (x, y,
+    scale, orientation in degrees) on ``img``, sampled by K5.  With
+    ``valid``, the valid keypoints are compacted first, K5 samples only
+    them, and the rows go back to their slots (invalid rows are zero
+    before normalization).  ``use_pallas`` is accepted for the JAX
+    package's signature and does not change the result."""
+    from sfm_tpu_torch.ops.sample import descriptor_sample
+
+    if valid is None:
+        return normalize_descriptors(
+            descriptor_sample(img, x, y, scale, orientation_deg))
+    order = compaction_order(valid)
+    raw_c = descriptor_sample(img, x[order], y[order], scale[order],
+                              orientation_deg[order],
+                              count=valid.sum().to(torch.int32))
+    raw = torch.empty_like(raw_c)
+    raw[order] = raw_c
+    return normalize_descriptors(raw)

@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from sfm_tpu.config import SiftConfig
+from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.ops.detect import detect_maps
 
 

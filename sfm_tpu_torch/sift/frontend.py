@@ -1,15 +1,19 @@
 """SIFT frontend: base chain ([K7,] K1, K2) -> per-octave detection
-(K3) -> atlas -> fused orientation + descriptor sampling (K4) ->
-duplicate descriptors (K5) (counterpart of ``sfm_tpu/sift/frontend.py``).
+(K3) -> atlas -> fused orientation + descriptor sampling (K4, or K9
+with ``sample_window``) -> duplicate descriptors (K5) (counterpart of
+``sfm_tpu/sift/frontend.py``).
 
 The port follows the JAX package's Pallas branch on every device:
 octave bases are packed into one atlas with 48-row edge-replicated
 guards, detections are capped to the ``sample_cap`` globally strongest
 slots, K4 samples every slot, and the second-peak duplicates are
 compacted and sampled by K5 into a fixed second half (slot i + K) —
-no re-compaction.  With ``up_scale`` the image is upsampled 2x
-before the prefilter and keypoints are halved back to input pixels at
-the end.  The TPU-only dispatch knobs (``use_pallas``,
+no re-compaction.  ``sample_window`` True, "hbm" or "vmem" samples
+through K9, which stages each keypoint's patch in shared memory and
+computes K4's function bit for bit; None, False and "blk" (the JAX
+package's paged-atlas form of K4) run K4.  With ``up_scale`` the image
+is upsampled 2x before the prefilter and keypoints are halved back to
+input pixels at the end.  The TPU-only dispatch knobs (``use_pallas``,
 ``fused_detect``, ``pyramid_pallas``, ``blur_matmul``, ``dup_split``,
 ``detect_lean``, ``sample_block_k``, ``topk_block``) are resolved by
 the port from the tensors' device.
@@ -22,12 +26,20 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from sfm_tpu.config import SiftConfig
+from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.ops.compact import compaction_order, stable_topk_indices
-from sfm_tpu_torch.ops.sample import descriptor_sample, fused_orient_descriptor
+from sfm_tpu_torch.ops.sample import (descriptor_sample, fused_orient_descriptor,
+                                     fused_orient_descriptor_win)
 from sfm_tpu_torch.sift import describe, detect as detect_mod, pyramid
 
 _GUARD = 48  # vertical guard rows between octaves (>= descriptor patch)
+# sample_window -> the fused sampling kernel: K9 stages patches in shared
+# memory, K4 gathers from the atlas; the same function.
+_SAMPLE_WINDOWS = {None: fused_orient_descriptor, False: fused_orient_descriptor,
+                   "blk": fused_orient_descriptor,
+                   True: fused_orient_descriptor_win,
+                   "hbm": fused_orient_descriptor_win,
+                   "vmem": fused_orient_descriptor_win}
 
 
 class Keypoints(NamedTuple):
@@ -52,10 +64,9 @@ def check_supported(cfg: SiftConfig):
     """Raise for configuration knobs this port does not implement."""
     if cfg.select != "topk":
         raise NotImplementedError(f"select={cfg.select!r}: only 'topk' is ported")
-    if cfg.sample_window:
-        raise NotImplementedError(
-            "sample_window: the windowed-DMA sampling kernel is not ported "
-            "(K4 computes the same function)")
+    if cfg.sample_window not in _SAMPLE_WINDOWS:
+        raise ValueError(f"sample_window={cfg.sample_window!r}: expected one of "
+                         f"{sorted(map(repr, _SAMPLE_WINDOWS))}")
     if cfg.sample_phases != 5:
         raise NotImplementedError("sample_phases != 5 is a TPU profiling mode")
     if cfg.octave_caps is not None and len(cfg.octave_caps) != cfg.num_octaves:
@@ -148,8 +159,8 @@ def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
                            sub_a, off_a))
     count = valid_a.sum().to(torch.int32)
 
-    d1, ori1, ori2, dup = fused_orient_descriptor(atlas, x_a, y_a, sc_a,
-                                                  count=count)
+    fused = _SAMPLE_WINDOWS[cfg.sample_window]
+    d1, ori1, ori2, dup = fused(atlas, x_a, y_a, sc_a, count=count)
     valid2 = dup & valid_a
     d2 = torch.zeros_like(d1)
     if cfg.orientation_duplicates:

@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from sfm_tpu.config import MatchConfig
+from sfm_tpu_torch.config import MatchConfig
 from sfm_tpu_torch.ops.match import match_top2
 
 

@@ -18,7 +18,7 @@ import math
 
 import numpy as np
 
-from sfm_tpu.config import SiftConfig
+from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.ops import image as imops
 from sfm_tpu_torch.ops import pyramid as pyr
 

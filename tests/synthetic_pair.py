@@ -236,3 +236,13 @@ def pose_errors_deg(R_est, t_est, R_gt, t_gt):
     b = np.asarray(t_gt, np.float64)
     c = a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-12)
     return float(rot), float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def write_pgm(path, img):
+    """Write an [H, W] 0..255 float image as an 8-bit binary PGM (P5),
+    rounded to the nearest level: the form the command-line drivers of
+    both packages read."""
+    a = np.clip(np.rint(np.asarray(img, np.float64)), 0, 255).astype(np.uint8)
+    with open(path, "wb") as fh:
+        fh.write(b"P5\n%d %d\n255\n" % (a.shape[1], a.shape[0]))
+        fh.write(a.tobytes())

@@ -22,12 +22,15 @@ from sfm_tpu.ops import image as jimage
 from sfm_tpu.ops.pallas_detect import detect_maps as jdetect_maps
 from sfm_tpu.sift import detect as jdetect
 from sfm_tpu.sift import pyramid as jpyramid
+from sfm_tpu_torch import interop
 from sfm_tpu_torch.ops import image
 from sfm_tpu_torch.ops.detect import detect_maps, detect_maps_plain
 from sfm_tpu_torch.sift import detect, pyramid
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.as_tensor
 CFG = SiftConfig(num_octaves=3, max_pts_per_octave=256)
+TCFG = interop.config_to_torch(CFG)   # the port's class
 
 
 @pytest.fixture(scope="module")
@@ -37,10 +40,10 @@ def img():
 
 def test_kernels_and_base_chain_match_jax(img):
     for o in range(CFG.num_octaves):
-        np.testing.assert_array_equal(pyramid.octave_kernel_bank(CFG, o),
+        np.testing.assert_array_equal(pyramid.octave_kernel_bank(TCFG, o),
                                       jpyramid.octave_kernel_bank(CFG, o))
     bj = [np.array(b) for b in jpyramid.base_chain(jnp.asarray(img), CFG)]
-    bt = [b.numpy() for b in pyramid.base_chain(T(img), CFG)]
+    bt = [b.numpy() for b in pyramid.base_chain(T(img), TCFG)]
     assert [b.shape for b in bt] == [b.shape for b in bj]
     for a, b in zip(bt, bj):
         np.testing.assert_allclose(a, b, atol=1e-3)
@@ -70,7 +73,7 @@ def _positions(d):
 
 
 def test_detect_maps_plain_matches_pallas_interpret(img):
-    base = pyramid.base_chain(T(img), CFG)[0].numpy()
+    base = pyramid.base_chain(T(img), TCFG)[0].numpy()
     taps = pyramid.octave_kernel_bank(CFG, 0)
     rj, aj = jdetect_maps(
         jnp.asarray(base), taps=tuple(tuple(float(v) for v in r) for r in taps),
@@ -93,7 +96,7 @@ def test_detect_maps_plain_matches_pallas_interpret(img):
     np.testing.assert_array_equal(r2.numpy(), rt)
 
     dj = jdetect.select_from_maps(jnp.asarray(rj), jnp.asarray(aj), CFG)
-    dt = detect.select_from_maps(T(rt), T(at), CFG)
+    dt = detect.select_from_maps(T(rt), T(at), TCFG)
     nj, nt = int(np.array(dj.valid).sum()), int(dt.valid.sum())
     assert abs(nt - nj) <= max(2, 0.01 * nj)
     pj, pt = _positions(dj), _positions(dt)
@@ -106,4 +109,4 @@ def test_unsupported_detect_knobs_raise(img):
     for bad in (dict(select="approx"), dict(select="compact"),
                 dict(lowest_scale=1.0)):
         with pytest.raises(NotImplementedError):
-            detect.detect_fused(base, taps, dataclasses.replace(CFG, **bad))
+            detect.detect_fused(base, taps, dataclasses.replace(TCFG, **bad))

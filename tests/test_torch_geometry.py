@@ -6,7 +6,10 @@ Jacobi, Householder QR, ridge inverse iteration, 5-DOF Gauss-Newton);
 they differ only in the order of f32 sums, so single decompositions
 agree to ~1e-5 and the end results (R, t) to 1e-4.  Inlier decisions
 can flip for residuals within rounding of the threshold, hence the
->= 99.5% mask agreement and 1% valid-count bounds.
+>= 99.5% mask agreement and 1% valid-count bounds (+-2 points with the
+translation re-vote).  The re-vote's integer scores tie across
+neighbouring directions; both packages take the lowest index, so the
+winning direction must be the same one.
 """
 
 import dataclasses
@@ -17,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from helpers import synthetic_two_view
+from helpers import rot, synthetic_two_view
 from sfm_tpu.config import PipelineConfig, RansacConfig
+from sfm_tpu.models import two_view as jtv
 from sfm_tpu.geometry import epipolar as jep
 from sfm_tpu.geometry import lie as jlie
 from sfm_tpu.geometry import pose as jpose
@@ -27,9 +31,11 @@ from sfm_tpu.geometry import refine as jrefine
 from sfm_tpu.geometry import triangulate as jtri
 from sfm_tpu.ops import compact as jcompact
 from sfm_tpu.ops import linalg as jlinalg
+from sfm_tpu_torch import interop
 from sfm_tpu_torch.geometry import epipolar, lie, pose, ransac, refine, triangulate
 from sfm_tpu_torch.models import two_view
 from sfm_tpu_torch.ops import compact, linalg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.as_tensor
 # Jitted: one compile instead of an eager dispatch per op; the same draw.
@@ -155,8 +161,6 @@ def test_refine_relative_pose_single_and_batched(rng):
     sc = synthetic_two_view(rng, n_points=300, noise=1e-3, n_outliers=20)
     x1, x2 = sc["x1"], sc["x2"]
     w = (rng.random(300) > 0.1).astype(np.float32)
-    from helpers import rot
-
     R0 = (rot([0.3, 1.0, 0.2], 0.03) @ sc["R"]).astype(np.float32)
     t0 = (sc["t"] + np.array([0.05, -0.04, 0.02])).astype(np.float32)
     rj = jrefine.refine_relative_pose(*map(jnp.asarray, (R0, t0, x1, x2, w)), iters=8)
@@ -244,8 +248,8 @@ def test_ransac_essential_with_injected_minimal_sets(rng):
 
 def test_two_view_geometry_with_generator_recovers_pose(rng):
     uv1, uv2, mask, K, sc = _pixel_problem(rng)
-    cfg = PipelineConfig(ransac=RansacConfig(n_hyps=256, threshold=3e-6),
-                         tvote_rounds=0)
+    cfg = interop.config_to_torch(PipelineConfig(
+        ransac=RansacConfig(n_hyps=256, threshold=3e-6), tvote_rounds=0))
     gen = torch.Generator().manual_seed(0)
     rt = two_view.two_view_geometry(*map(T, (uv1, uv2, mask, K)), cfg,
                                     generator=gen)
@@ -253,7 +257,49 @@ def test_two_view_geometry_with_generator_recovers_pose(rng):
 
     assert rot_angle_error(rt.R.numpy(), sc["R"]) < 5e-3
     assert float(rt.t.numpy() @ sc["t"]) > 0.999
-    with pytest.raises(NotImplementedError):
-        two_view.two_view_geometry(*map(T, (uv1, uv2, mask, K)),
-                                   dataclasses.replace(cfg, tvote_rounds=1),
-                                   generator=gen)
+    # The translation re-vote rounds (the package default) keep the pose.
+    rv = two_view.two_view_geometry(*map(T, (uv1, uv2, mask, K)),
+                                    dataclasses.replace(cfg, tvote_rounds=1),
+                                    generator=torch.Generator().manual_seed(0))
+    assert rot_angle_error(rv.R.numpy(), sc["R"]) < 5e-3
+    assert float(rv.t.numpy() @ sc["t"]) > 0.999
+
+
+def test_fibonacci_sphere_matches_jax():
+    np.testing.assert_array_equal(pose._fibonacci_sphere(1024),
+                                  jpose._fibonacci_sphere(1024))
+
+
+@pytest.mark.parametrize("n_dirs", [256, 1024])
+def test_cheirality_t_vote_matches_jax(rng, n_dirs):
+    # A rotation-dominant pair (small baseline), where the vote matters.
+    sc = synthetic_two_view(rng, n_points=400, noise=3e-4, n_outliers=30,
+                            R=rot([0.2, 1.0, 0.1], 0.2),
+                            t=np.array([0.05, 0.02, 0.01]))
+    R = (rot([1.0, 0.3, 0.0], 0.002) @ sc["R"]).astype(np.float32)
+    mask = rng.random(400) > 0.1
+    args = (R, sc["x1"], sc["x2"], mask)
+    vj = jpose.cheirality_t_vote(*map(jnp.asarray, args), 3e-6, n_dirs=n_dirs)
+    vt = pose.cheirality_t_vote(*map(T, args), 3e-6, n_dirs=n_dirs)
+    np.testing.assert_array_equal(vt["t"].numpy(), np.array(vj["t"]))
+    np.testing.assert_allclose(vt["E"].numpy(), np.array(vj["E"]), atol=1e-5)
+    assert int(vt["score"]) == int(vj["score"]) > 100
+    assert (vt["ok"].numpy() == np.array(vj["ok"])).mean() >= 0.995
+    assert float(vt["t"].numpy() @ sc["t"]) / np.linalg.norm(sc["t"]) > 0.9
+
+
+def test_two_view_geometry_tvote_matches_jax(rng):
+    uv1, uv2, mask, K, sc = _pixel_problem(rng)
+    cfg = PipelineConfig(ransac=RansacConfig(n_hyps=256, threshold=3e-6),
+                         tvote_rounds=1)
+    key = jax.random.PRNGKey(1)
+    disp_ok = np.sum((uv1 - uv2) ** 2, -1) > cfg.ransac.min_disparity_px ** 2
+    idx = np.array(sample_minimal_sets_jax(key, jnp.asarray(mask & disp_ok),
+                                           cfg.ransac.n_hyps))
+    rj = jtv.two_view_geometry(key, *map(jnp.asarray, (uv1, uv2, mask, K)), cfg)
+    rt = two_view.two_view_geometry(*map(T, (uv1, uv2, mask, K)),
+                                    interop.config_to_torch(cfg), minimal_sets=T(idx))
+    np.testing.assert_allclose(rt.R.numpy(), np.array(rj.R), atol=1e-4)
+    np.testing.assert_allclose(rt.t.numpy(), np.array(rj.t), atol=1e-4)
+    assert (rt.inliers.numpy() == np.array(rj.inliers)).mean() >= 0.995
+    assert abs(int(rt.point_valid.sum()) - int(np.array(rj.point_valid).sum())) <= 2

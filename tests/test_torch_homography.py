@@ -21,6 +21,7 @@ from sfm_tpu.geometry import homography as jhom
 from sfm_tpu.geometry import ransac as jransac
 from sfm_tpu_torch import interop
 from sfm_tpu_torch.geometry import homography
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.as_tensor
 sample_minimal_sets_jax = jax.jit(jransac.sample_minimal_sets, static_argnums=(2, 3))

@@ -1,4 +1,5 @@
-"""The port imports no jax, and rejects the knobs it does not implement."""
+"""The port and ``chip_smoke.py`` import no jax and nothing of the JAX
+package, and the port rejects the knobs it does not implement."""
 
 import dataclasses
 import os
@@ -9,51 +10,50 @@ import numpy as np
 import pytest
 import torch
 
-from sfm_tpu.config import PipelineConfig, SiftConfig
+from sfm_tpu_torch.config import PipelineConfig, SiftConfig
 from sfm_tpu_torch.models import two_view
 from sfm_tpu_torch.ops import _cuda
 from sfm_tpu_torch.sift import frontend
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_CHECK = """
+bad = sorted(m for m in sys.modules if m in ("jax", "jaxlib", "sfm_tpu")
+             or m.startswith(("jax.", "jaxlib.", "sfm_tpu.")))
+print(bad)
+assert not bad, bad
+"""
 _PROBE = """
 import importlib, pkgutil, sys
 import sfm_tpu_torch
 import sfm_tpu_torch.models.two_view
 for m in pkgutil.walk_packages(sfm_tpu_torch.__path__, "sfm_tpu_torch."):
     importlib.import_module(m.name)
-bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-       or m.startswith("jaxlib")]
-shared = sorted(m for m in sys.modules if m.startswith("sfm_tpu."))
-print(bad, shared)
-assert not bad, bad
-assert all(m == "sfm_tpu.config" or m.startswith("sfm_tpu.io") for m in shared), shared
-"""
+""" + _CHECK
+# chip_smoke.py imported as a module: main() does not run.
+_PROBE_SMOKE = """
+import sys
+import chip_smoke
+""" + _CHECK
 
 
-def test_port_imports_no_jax():
+@pytest.mark.parametrize("probe", [_PROBE, _PROBE_SMOKE], ids=["port", "chip_smoke"])
+def test_port_imports_no_jax(probe):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _ROOT
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=_ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=_ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("knob", [
-    dict(select="approx"), dict(select="compact"),
-    dict(sample_window=True), dict(sample_window="vmem"),
-    dict(sample_phases=4),
+    dict(select="approx"), dict(select="compact"), dict(sample_phases=4),
 ])
 def test_unsupported_sift_knobs_raise(knob):
     img = torch.zeros((64, 64))
     with pytest.raises(NotImplementedError):
         frontend.extract_sift(img, dataclasses.replace(SiftConfig(), **knob))
-
-
-def test_tvote_rounds_raise():
-    img = torch.zeros((64, 64))
-    with pytest.raises(NotImplementedError):
-        two_view.frontend_stage(img, img, PipelineConfig(tvote_rounds=1))
 
 
 def test_kernel_argument_checks_reject_cpu_tensors():
@@ -63,7 +63,9 @@ def test_kernel_argument_checks_reject_cpu_tensors():
         _cuda.require(torch.zeros(3), "x", torch.float32, (3,))
     assert set(_cuda.LAUNCHES) == {"blur9", "scale_down", "scale_up",
                                    "detect_maps", "fused_orient_descriptor",
-                                   "descriptor_sample", "match_top2"}
+                                   "descriptor_sample", "match_top2",
+                                   "orientation_histogram_sample",
+                                   "fused_orient_descriptor_win"}
 
 
 def test_zero_images_give_no_matches_and_finite_pose():

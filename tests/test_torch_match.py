@@ -16,8 +16,10 @@ import torch
 from sfm_tpu.config import MatchConfig
 from sfm_tpu.ops.pallas_match import match_top2_pallas
 from sfm_tpu.sift import match as jmatch
+from sfm_tpu_torch import interop
 from sfm_tpu_torch.ops.match import match_top2, match_top2_plain
 from sfm_tpu_torch.sift import match
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.as_tensor
 
@@ -68,10 +70,11 @@ def test_match_ratio_test_matches_jax(rng):
     v2 = rng.random(250) > 0.05
     cfg = MatchConfig(bf16=False)
     mj = jmatch.match(*map(jnp.asarray, (d1, d2, v1, v2)), cfg)
-    mt = match.match(*map(T, (d1, d2, v1, v2)), cfg)
+    mt = match.match(*map(T, (d1, d2, v1, v2)), interop.config_to_torch(cfg))
     assert (mt.index.numpy() == np.array(mj.index)).mean() >= 0.999
     assert (mt.valid.numpy() == np.array(mj.valid)).mean() >= 0.999
     np.testing.assert_allclose(mt.ambiguity.numpy(), np.array(mj.ambiguity),
                                atol=1e-5)
-    mm = match.match(*map(T, (d1, d2, v1, v2)), MatchConfig(mutual=True))
+    mm = match.match(*map(T, (d1, d2, v1, v2)),
+                     interop.config_to_torch(MatchConfig(mutual=True)))
     assert int(mm.valid.sum()) <= int(mt.valid.sum())

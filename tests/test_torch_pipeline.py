@@ -27,6 +27,7 @@ from sfm_tpu.sift import frontend as jfrontend
 from sfm_tpu_torch import interop
 from sfm_tpu_torch.models import two_view
 from sfm_tpu_torch.sift import frontend
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # sample_block_k is a TPU tiling knob the port ignores.  The JAX side's
 # interpret-mode compile of the sampling kernels grows with the block,
@@ -39,6 +40,7 @@ CFG = PipelineConfig(
     ransac=RansacConfig(n_hyps=256, threshold=3e-6, chunk=256),
     tvote_rounds=0,
 )
+TCFG = interop.config_to_torch(CFG)   # the same configuration, the port's classes
 # Jitted: one compile instead of an eager dispatch per op; the same draw.
 sample_minimal_sets_jax = jax.jit(jransac.sample_minimal_sets, static_argnums=(2,))
 
@@ -66,7 +68,7 @@ def _kp_positions(kp):
 
 def test_frontend_matches_jax_slice(pair, jax_stages):
     s1j, s2j, (uv1j, uv2j, maskj) = jax_stages
-    s1t = frontend.extract_sift(torch.as_tensor(pair["img1"]), CFG.sift)
+    s1t = frontend.extract_sift(torch.as_tensor(pair["img1"]), TCFG.sift)
     nj = int(s1j.keypoints.valid.sum())
     nt = int(s1t.keypoints.valid.sum())
     assert nj > 300
@@ -75,8 +77,8 @@ def test_frontend_matches_jax_slice(pair, jax_stages):
     assert len(pj & pt) >= 0.95 * len(pj)
 
     # Port SIFT -> port match stage, against the JAX match stage.
-    s2t = frontend.extract_sift(torch.as_tensor(pair["img2"]), CFG.sift)
-    uv1t, uv2t, maskt = two_view.match_stage(s1t, s2t, CFG)
+    s2t = frontend.extract_sift(torch.as_tensor(pair["img2"]), TCFG.sift)
+    uv1t, uv2t, maskt = two_view.match_stage(s1t, s2t, TCFG)
     mj, mt = int(maskj.sum()), int(maskt.sum())
     assert mj > 200
     assert abs(mt - mj) <= max(3, 0.02 * mj)
@@ -102,7 +104,7 @@ def test_geometry_on_jax_correspondences(pair, jax_stages):
         key, jnp.asarray(mask & disp_ok), CFG.ransac.n_hyps))
     rj = jtv.two_view_geometry(key, *map(jnp.asarray, (uv1, uv2, mask, K)), CFG)
     uv1t, uv2t, maskt = interop.to_torch((uv1, uv2, mask))
-    rt = two_view.two_view_geometry(uv1t, uv2t, maskt, torch.as_tensor(K), CFG,
+    rt = two_view.two_view_geometry(uv1t, uv2t, maskt, torch.as_tensor(K), TCFG,
                                     minimal_sets=interop.to_torch(idx))
     np.testing.assert_allclose(rt.R.numpy(), np.asarray(rj.R), atol=1e-4)
     np.testing.assert_allclose(rt.t.numpy(), np.asarray(rj.t), atol=1e-4)
@@ -117,7 +119,7 @@ def test_end_to_end_pose_against_ground_truth(pair):
     img1, img2, K = (torch.as_tensor(pair[k]) for k in ("img1", "img2", "K"))
     errs = []
     for seed in range(3):
-        res = two_view.run_two_view(img1, img2, K, CFG, seed=seed)
+        res = two_view.run_two_view(img1, img2, K, TCFG, seed=seed)
         errs.append(pose_errors_deg(res.R.numpy(), res.t.numpy(), pair["R"],
                                     pair["t"]))
         assert int(res.point_valid.sum()) > 0

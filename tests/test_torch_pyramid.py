@@ -21,8 +21,10 @@ from sfm_tpu.config import SiftConfig
 from sfm_tpu.ops import image as jimage
 from sfm_tpu.ops import pallas_pyramid as jpp
 from sfm_tpu.sift import pyramid as jpyramid
+from sfm_tpu_torch import interop
 from sfm_tpu_torch.ops import pyramid as pyr
 from sfm_tpu_torch.sift import frontend, pyramid
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.as_tensor
 LP = tuple(float(t) for t in jimage.gaussian_kernel(4, 1.5 * 1.5))
@@ -77,7 +79,8 @@ def test_base_chain_matches_pallas_base_chain(up_scale):
     img = _image((61, 83), seed=1)
     ref = [np.asarray(b) for b in
            jpyramid.base_chain_pallas(jnp.asarray(img), cfg, interpret=True)]
-    out = [b.numpy() for b in pyramid.base_chain(T(img), cfg)]
+    out = [b.numpy()
+           for b in pyramid.base_chain(T(img), interop.config_to_torch(cfg))]
     assert [b.shape for b in out] == [b.shape for b in ref]
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a, b, atol=2e-3)

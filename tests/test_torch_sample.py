@@ -21,6 +21,7 @@ from sfm_tpu.ops import pallas_sample
 from sfm_tpu.sift import describe as jdescribe
 from sfm_tpu_torch.ops.sample import descriptor_sample, fused_orient_descriptor
 from sfm_tpu_torch.sift import describe
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.as_tensor
 

@@ -24,6 +24,7 @@ from sfm_tpu.sift import frontend as jfrontend
 from sfm_tpu.sift import match as jmatch
 from sfm_tpu_torch import interop
 from sfm_tpu_torch.sift import frontend, match
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # tools/bench_upscale.py's up_t2.0 (thresh 2, init_blur 1, up_scale) cut
 # to 3 octaves and small caps; sample_block_k=8 keeps the JAX side's
@@ -33,6 +34,7 @@ CFG = SiftConfig(num_octaves=3, max_pts_per_octave=512, octave_caps=(512, 256, 1
                  use_pallas=True, fused_detect=True, pyramid_pallas=True,
                  sample_block_k=8)
 MCFG = MatchConfig(use_pallas=True)
+TCFG, TMCFG = map(interop.config_to_torch, (CFG, MCFG))   # the port's classes
 
 
 @pytest.fixture(scope="module")
@@ -57,8 +59,8 @@ def _positions(kp):
 
 def test_upscale_frontend_and_matches_match_jax(pair, jax_stages):
     s1j, s2j, mj = jax_stages
-    s1 = frontend.extract_sift(torch.as_tensor(pair["img1"]), CFG)
-    s2 = frontend.extract_sift(torch.as_tensor(pair["img2"]), CFG)
+    s1 = frontend.extract_sift(torch.as_tensor(pair["img1"]), TCFG)
+    s2 = frontend.extract_sift(torch.as_tensor(pair["img2"]), TCFG)
     for sj, st in ((s1j, s1), (s2j, s2)):
         nj, nt = int(sj.keypoints.valid.sum()), int(st.keypoints.valid.sum())
         assert nj > 150
@@ -68,7 +70,7 @@ def test_upscale_frontend_and_matches_match_jax(pair, jax_stages):
     # Keypoints are back in input pixels.
     assert float(s1.keypoints.x[s1.keypoints.valid].max()) < 128
     m = match.match(s1.descriptors, s2.descriptors, s1.keypoints.valid,
-                    s2.keypoints.valid, MCFG)
+                    s2.keypoints.valid, TMCFG)
     nmj, nmt = int(mj.valid.sum()), int(m.valid.sum())
     assert nmj > 100
     assert abs(nmt - nmj) <= max(3, 0.02 * nmj)
@@ -77,10 +79,10 @@ def test_upscale_frontend_and_matches_match_jax(pair, jax_stages):
 def test_upscale_h_fit_on_the_port_recovers_the_pair(pair):
     # bench_upscale.py:116-134 (chip_smoke.h_fit) on the port's own
     # extraction and matches.
-    s1 = frontend.extract_sift(torch.as_tensor(pair["img1"]), CFG)
-    s2 = frontend.extract_sift(torch.as_tensor(pair["img2"]), CFG)
+    s1 = frontend.extract_sift(torch.as_tensor(pair["img1"]), TCFG)
+    s2 = frontend.extract_sift(torch.as_tensor(pair["img2"]), TCFG)
     m = match.match(s1.descriptors, s2.descriptors, s1.keypoints.valid,
-                    s2.keypoints.valid, MatchConfig())
+                    s2.keypoints.valid, interop.config_to_torch(MatchConfig()))
     fit = h_fit(s1, s2, m, torch.Generator().manual_seed(0))
     err = homography_grid_errors(fit.H.numpy(), pair["H_gt"], 96, 128)
     assert fit.numfit > 0.5 * int(m.valid.sum())
@@ -90,4 +92,4 @@ def test_upscale_h_fit_on_the_port_recovers_the_pair(pair):
 def test_octave_caps_must_match_the_octave_count():
     with pytest.raises(ValueError):
         frontend.extract_sift(torch.zeros((32, 32)),
-                              dataclasses.replace(CFG, octave_caps=(8, 8)))
+                              dataclasses.replace(TCFG, octave_caps=(8, 8)))
