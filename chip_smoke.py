@@ -13,11 +13,15 @@ Phases, each of which fails the run on any error:
 3. kernels at the bench path's shapes: each kernel against its plain
    PyTorch version on the same card tensors (K1 on a 576 x 720 image,
    K2 on its 4 octave descents plus an odd 575 x 719 image, K3 on the 5
-   octave bases, K4, K8 and K9 on the 2,560 capped slots, K9 also
+   octave bases in one launch, which must equal its per-octave launches
+   bit for bit, K4, K8 and K9 on the 2,560 capped slots, K9 also
    against K4's own output, K5 on their duplicate subset, K6 at
-   5,120 x 5,120 x 128), with CUDA-event times for both, each kernel's
-   bound on the card, and, where one PyTorch call computes the same
-   function, that call's time;
+   5,120 x 5,120 x 128), with CUDA-event times for both (and the
+   kernel's device time alone, its calls queued behind a spin kernel so
+   the host's enqueue is hidden), each kernel's bound on the card, and,
+   where one PyTorch call computes the same function, that call's time
+   (for K6 also the two-call ``torch.topk(a @ b.T, 2)``, in the JSON
+   report only);
 4. the bench path: ``two_view_pipeline`` with bench.py's own config
    (``slice_config``) on a 720 x 576 synthetic textured pair
    (``tests/synthetic_pair.py``) over 8 RANSAC seeds, gated against the
@@ -58,7 +62,8 @@ Phases, each of which fails the run on any error:
 
 Each of the main paths (phases 4 to 8) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
-it goes through, and together they launch all nine.  The last lines of
+it goes through, K3 exactly once per image it extracts, and together
+they launch all nine.  The last lines of
 standard output are the kernels' JSON record (each kernel's
 ``launches`` summed over those paths, its ``max_abs_err`` the largest
 of phases 3, 5 and 6, its times and bound phase 3's, or phase 5's for
@@ -146,6 +151,10 @@ PEAK_OPS = 32 * 11
 # unless the bench path does not launch it.
 TIMED_AT = {"scale_up": "upscale", "orientation_histogram_sample": "module_api"}
 
+# Images each main path extracts (phases 4 to 8): K3 launches once per
+# image, all octaves together.
+PATH_IMAGES = {"bench": 16, "upscale": 2, "module_api": 1, "upscale_window": 2,
+               "cli": 18}
 # Kernels each main path must launch (phases 4 to 8).
 _BASE = {"blur9", "scale_down", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
@@ -185,6 +194,27 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call: the calls are queued behind a
+    ~10 ms spin kernel, so the events bracket device work only, not the
+    host's time to enqueue them (a wrapper that synchronizes falls back
+    to ``cuda_ms``'s reading)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes: float, ops: float, peak: float = F32_FLOPS):
     """(least ms on the card, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -202,7 +232,8 @@ def patch_bytes(atlas, live: int, P: int) -> int:
 def kernel_record(name, err, k_fn, p_fn, shapes, nbytes, ops, peak=F32_FLOPS,
                   lib_fn=None, plain_reps=20):
     """A kernel's record: max |err| against its plain version, CUDA-event
-    ms of kernel and plain version, the bound on the card for ``nbytes``
+    ms of kernel and plain version, the kernel's device ms alone, the
+    bound on the card for ``nbytes``
     and ``ops``, and the ms of ``lib_fn`` (one PyTorch call computing the
     same function) where there is one."""
     from sfm_tpu_torch.utils.precision import f32_precision
@@ -214,7 +245,7 @@ def kernel_record(name, err, k_fn, p_fn, shapes, nbytes, ops, peak=F32_FLOPS,
         with f32_precision():
             lib_ms = cuda_ms(lib_fn)
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "max_abs_err": err, "ms": cuda_ms(k_fn),
+            "max_abs_err": err, "ms": cuda_ms(k_fn), "device_ms": device_ms(k_fn),
             "plain_ms": cuda_ms(p_fn, reps=plain_reps), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "bytes": nbytes, "ops": ops,
             "shapes": shapes}
@@ -283,10 +314,14 @@ KERNEL_SOURCES = {
 
 
 def check_path_launches(path, launches, gates):
-    """Every kernel the path goes through launched in its run."""
+    """Every kernel the path goes through launched in its run, K3 once
+    per image."""
     for name in sorted(PATH_KERNELS[path]):
         gates.check(launches[name] > 0, f"kernel {name} was not launched on the "
                     f"{path} path")
+    gates.check(launches["detect_maps"] == PATH_IMAGES[path],
+                f"K3 launched {launches['detect_maps']} times on the {path} path "
+                f"for {PATH_IMAGES[path]} images")
 
 
 def _conv(taps, stride, dev):
@@ -390,12 +425,15 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
         sum(10 * (h // 2) * w + 10 * (h // 2) * (w // 2) for h, w in desc_in),
         lib_fn=descend_conv)
 
-    # K3 on the octave bases.
+    # K3 on the octave bases: one launch for all of them, as the path
+    # runs it, equal bit for bit to one launch per octave.
     bases = pyramid.base_chain(img1, sc)
-    taps = [pyramid.octave_kernel_bank(sc, o) for o in range(sc.num_octaves)]
-    mism, n_cand, e3 = 0, 0, 0.0
-    for b, tp in zip(bases, taps):
-        rk, ak = detect.detect_maps(b, tp, sc.thresh, sc.edge_limit)
+    taps = frontend._tap_banks(sc)   # [octaves, planes, 9], as the path passes them
+    multi = detect.detect_maps_octaves(bases, taps, sc.thresh, sc.edge_limit)
+    mism, n_cand, e3, per_octave_diff = 0, 0, 0.0, 0
+    for (rk, ak), b, tp in zip(multi, bases, taps):
+        rs, as_ = detect.detect_maps(b, tp, sc.thresh, sc.edge_limit)
+        per_octave_diff += int((rk != rs).sum()) + int((ak != as_).sum())
         rp, ap = detect.detect_maps_plain(b, tp, sc.thresh, sc.edge_limit)
         ck, cp = rk > 0, rp > 0
         mism += int((ck != cp).sum())
@@ -407,16 +445,17 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     gates.check(n_cand > 1000, f"{where}: K3 only {n_cand} candidates")
     gates.check(mism <= max(2, 0.001 * n_cand), f"{where}: K3 {mism} mismatched pixels")
     gates.check(e3 <= 1e-4, f"{where}: K3 max err {e3}")
+    gates.check(per_octave_diff == 0, f"{where}: K3's one launch differs from its "
+                f"per-octave launches in {per_octave_diff} values")
     # Per pixel: the separable blur bank, the DoG differences and the
     # 26-neighbour test on each interior DoG plane; out: resp + 11 aux.
     n_px = sum(b.numel() for b in bases)
-    planes, ntap = taps[0].shape
+    _, planes, ntap = taps.shape
     add("detect_maps", e3,
-        lambda: [detect.detect_maps(b, tp, sc.thresh, sc.edge_limit)
-                 for b, tp in zip(bases, taps)],
+        lambda: detect.detect_maps_octaves(bases, taps, sc.thresh, sc.edge_limit),
         lambda: [detect.detect_maps_plain(b, tp, sc.thresh, sc.edge_limit)
                  for b, tp in zip(bases, taps)],
-        f"{len(bases)} octave bases of {H}x{W} (one image)",
+        f"{len(bases)} octave bases of {H}x{W} (one image, one launch)",
         4 * n_px * (1 + 12),
         n_px * (4 * planes * ntap + (planes - 1) + 26 * (planes - 3)),
         plain_reps=5)
@@ -516,12 +555,17 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
         lambda: match.match_top2_plain(a, b, va),
         f"{n1r}x{n2r}x128 bf16, {int(live.sum())} live rows",
         2 * 128 * (n1r + n2r) + n2r + 12 * n1r, 2.0 * n1r * n2r * 128, peak=BF16_FLOPS)
+    # The unfused two-call form: the score matrix through device memory.
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    rec["match_top2"]["unfused_topk_ms"] = cuda_ms(lambda: torch.topk(ab @ bb.T, 2))
+    del ab, bb
     torch.cuda.synchronize()
     e7_txt = f"K7 {rec['scale_up']['max_abs_err']:.3g}, " if sc.up_scale else ""
     log(f"{where}, kernels against their plain versions: {e7_txt}K1 {H}x{W} "
         f"{e1:.3g}; K2 {shapes} {e2:.3g} (expected 0, tolerance 1e-4); K3 "
         f"candidates {n_cand}, mismatched pixels {mism}, max |err| {e3:.3g} "
-        f"(tolerance <= max(2, 0.1%), 1e-4); K4 slots {K}, live {n}, "
+        f"(tolerance <= max(2, 0.1%), 1e-4), one launch vs per octave "
+        f"{per_octave_diff} values differ (expected 0); K4 slots {K}, live {n}, "
         f"rows within 1e-3 and 0.01 deg {frac:.5f}, dup agreement {dup_agree:.5f}, "
         f"max |err| {e4:.3g} (>= 99.5%); K9 vs K4 max |err| {e9k:.3g} (expected "
         f"0), vs plain rows {frac9:.5f}, max |err| {e9:.3g}; K8 max |err| "
@@ -1053,7 +1097,7 @@ def main() -> int:
     lib = _cuda.library()
     log(f"build: {lib.path.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(k in line for k in ("entry function", "registers", "spill")):
             log("  ptxas: " + line.strip())
 
     gates = Gates()

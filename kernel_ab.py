@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""A/B times of the port's K3 (detection maps) and K6 (matcher) kernels
+for two or more checkouts of the repository, on one card.
+
+Run from the repository root on a machine with an NVIDIA card:
+
+    python3 kernel_ab.py TREE [TREE ...]
+
+Each TREE is the root of a checkout (``.`` for this one); they run in
+the order given, each in a process of its own (the package has one
+name), so ``OLD NEW NEW OLD`` alternates them on the same card.  Per
+tree: the ``-Xptxas -v`` lines of its K3 and K6 kernels (registers,
+shared memory, spills), then CUDA-event milliseconds per call (mean of
+20 after 3 warm-ups) and device milliseconds alone (the calls queued
+behind a spin kernel) of
+
+- K3 on the 5 octave bases of one image: the bench path's 576 x 720
+  synthetic image and the up-scale path's 1920 x 2560 base (the 960 x
+  1280 rotation pair's first image up-scaled), however the tree
+  launches it (one launch per image, or one per octave);
+- K6 ``match_top2`` on seeded unit descriptors at 5,120^2 x 128 and
+  23,552^2 x 128 (bf16, all columns valid).
+
+Prints one JSON line per tree and writes them all to
+``chiprun_out/kernel_ab.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+_CHILD = r'''
+import importlib.util, json, os, sys
+sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "tests")]
+import numpy as np, torch
+spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[1])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)   # this checkout's chip_smoke.py: the same clocks for every tree
+card_line, cuda_ms, device_ms = timing.card_line, timing.cuda_ms, timing.device_ms
+from sfm_tpu_torch.config import SiftConfig
+from sfm_tpu_torch.ops import _cuda, detect, match
+from sfm_tpu_torch.ops import pyramid as pyr
+from sfm_tpu_torch.sift import pyramid
+from synthetic_pair import rotation_pair, synthetic_pair
+
+dev = torch.device("cuda", 0)
+lib = _cuda.library()
+out = {"tree": os.getcwd(), "card": card_line(), "ptxas": [], "ms": {}}
+keep = False
+for line in lib.build_log.splitlines():
+    if "Compiling entry function" in line:
+        keep = "detect" in line or "match" in line
+    if keep and ("entry" in line or "registers" in line or "spill" in line):
+        out["ptxas"].append(line.strip())
+multi = getattr(detect, "detect_maps_octaves", None)
+images = {"bench": torch.as_tensor(synthetic_pair(576, 720, seed=0)["img1"], device=dev),
+          "upscale": pyr.scale_up(torch.as_tensor(
+              rotation_pair(960, 1280, seed=0)["img1"], device=dev))}
+for name, img in images.items():
+    cfg = SiftConfig(thresh=2.0, init_blur=1.0) if name == "upscale" else SiftConfig()
+    bases = pyramid.base_chain(img, cfg)
+    taps = [pyramid.octave_kernel_bank(cfg, o) for o in range(cfg.num_octaves)]
+    if multi is not None:
+        fn = lambda: multi(bases, taps, cfg.thresh, cfg.edge_limit)
+    else:
+        fn = lambda: [detect.detect_maps(b, t, cfg.thresh, cfg.edge_limit)
+                      for b, t in zip(bases, taps)]
+    out["ms"][f"K3 {name} {tuple(bases[0].shape)}"] = (cuda_ms(fn), device_ms(fn))
+rng = np.random.default_rng(0)
+for n in (5120, 23552):
+    d = np.abs(rng.normal(size=(2 * n, 128))).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    a, b = torch.as_tensor(d[:n], device=dev), torch.as_tensor(d[n:], device=dev)
+    v = torch.ones(n, dtype=torch.bool, device=dev)
+    fn = lambda: match.match_top2(a, b, v)
+    out["ms"][f"K6 {n}^2 x 128"] = (cuda_ms(fn), device_ms(fn))
+print(json.dumps(out))
+'''
+
+
+def main() -> int:
+    trees = sys.argv[1:] or ["."]
+    results = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, "-c", _CHILD,
+                               os.path.join(ROOT, "chip_smoke.py")],
+                              cwd=os.path.abspath(tree),
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        for line in res["ptxas"]:
+            print("  ptxas:", line)
+        print(json.dumps({"tree": tree, "card": res["card"], "ms": res["ms"]}), flush=True)
+        results.append(res)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "kernel_ab.json"), "w") as fh:
+        json.dump(results, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

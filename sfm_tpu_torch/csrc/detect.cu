@@ -1,172 +1,302 @@
 // K3: fused blur bank + DoG + 26-neighbour NMS + lean refinement
-// coefficients for one octave base.
+// coefficients, for every octave base of an image in one launch.
 //
 // Replaces sfm_tpu/ops/pallas_detect.py:259 detect_maps (lean kernel).
 // See sfm_tpu_torch/ops/detect.py for the contract and the design note.
 //
-// One 32 x 16 thread block per 32-wide, 16-high output tile.  Shared
-// memory holds the edge-clamped slab (tile + 1-pixel halo + radius 4),
-// one column-blurred plane, two blurred planes (previous, current) and
-// a ring of 3 DoG planes over the tile + halo.  Scale s is tested as
-// soon as DoG plane s+1 exists.  Every arithmetic step uses the _rn
-// intrinsics so nothing is contracted into an FMA: the plain PyTorch
-// version evaluates the same roundings in the same order.
+// What bounds it: device memory at the large octaves (one f32 read of
+// the base and 12 f32 maps written per pixel, 52 B/px), launch latency
+// and a thin grid at the small ones, and on the way the ~300 blur
+// multiply-adds per pixel with their operand traffic.
+//
+// Design.  One launch covers all octaves: the grid is flat, and a block
+// finds its octave (base, outputs, H, W, first block) and that octave's
+// taps in a by-value parameter table.  A 128-thread block owns a strip
+// of 118 output columns and `rows` output rows; thread t owns slab
+// column x0 - 5 + t and walks down the strip one row per step:
+//   - the 9-row vertical window of its base column lives in registers
+//     (one new load per row, prefetched a row ahead) and serves all
+//     planes, since only the taps differ;
+//   - it writes its column sum of each plane to one shared row per
+//     plane; after one barrier, threads 4..123 take their row pass from
+//     the 9 neighbouring column sums and form the DoG row of each plane;
+//   - the 3 latest DoG rows of each plane stay in registers for the
+//     thread's own column, and a 3-row shared ring gives the x +- 1
+//     neighbours; after a second barrier, threads 5..122 run the
+//     26-neighbour test and, where it passes, the edge gate and the 11
+//     coefficients for the row above, and write its 12 maps.
+// Two barriers per row, not two per plane; nothing but the maps reaches
+// device memory.  Every arithmetic step uses the _rn intrinsics, in the
+// plain PyTorch version's order (column pass, then row pass, taps in
+// order), so the two agree bit for bit.
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kR = 4;                  // blur radius
+constexpr int kR = 4;                      // blur radius
 constexpr int kTaps = 2 * kR + 1;
-constexpr int kTW = 32;                // tile width
-constexpr int kTH = 16;                // tile height
-constexpr int kHX = kTW + 2;           // tile + NMS halo
-constexpr int kHY = kTH + 2;
-constexpr int kSW = kHX + 2 * kR;      // slab
-constexpr int kSH = kHY + 2 * kR;
-constexpr int kMaxPlanes = 16;
-constexpr int kThreads = kTW * kTH;
+constexpr int kThreads = 128;
+constexpr int kHalo = kR + 1;              // blur radius + NMS ring
+constexpr int kOut = kThreads - 2 * kHalo; // output columns per strip
+constexpr int kMaxOctaves = 8;
+constexpr int kMinPlanes = 4;
+constexpr int kMaxPlanes = 10;
 
+struct Octave {
+  const float* base;
+  float* resp;
+  float* aux;
+  int H, W, strips_x, block0;
+};
+
+struct Params {
+  Octave oct[kMaxOctaves];
+  float taps[kMaxOctaves][kMaxPlanes * kTaps];
+  int n_oct;
+  int rows;               // output rows per strip
+  float thresh, edge_limit;
+};
+
+template <int P>
 __global__ void __launch_bounds__(kThreads)
-detect_kernel(const float* __restrict__ base, const float* __restrict__ taps,
-              int n_planes, int H, int W, float thresh, float edge_limit,
-              float* __restrict__ resp, float* __restrict__ aux) {
-  __shared__ float slab[kSH][kSW];
-  __shared__ float colb[kHY][kSW];
-  __shared__ float blur[2][kHY][kHX];
-  __shared__ float dog[3][kHY][kHX];
-  __shared__ float tp[kMaxPlanes * kTaps];
+detect_kernel(const __grid_constant__ Params prm) {
+  constexpr int D = P - 1;                 // DoG planes
+  __shared__ __align__(16) float tp[P][12];
+  __shared__ float cs[P][kThreads];
+  __shared__ float ring[3][D][kThreads];
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTW + tx;
-  const int x0 = blockIdx.x * kTW;
-  const int y0 = blockIdx.y * kTH;
-
-  for (int e = tid; e < n_planes * kTaps; e += kThreads) tp[e] = taps[e];
-  for (int e = tid; e < kSH * kSW; e += kThreads) {
-    const int r = e / kSW, c = e % kSW;
-    const int gy = min(max(y0 - 1 - kR + r, 0), H - 1);
-    const int gx = min(max(x0 - 1 - kR + c, 0), W - 1);
-    slab[r][c] = base[(size_t)gy * W + gx];
+  int o = 0;
+  while (o + 1 < prm.n_oct && (int)blockIdx.x >= prm.oct[o + 1].block0) ++o;
+  const Octave& oc = prm.oct[o];
+  const int H = oc.H, W = oc.W;
+  const int blk = blockIdx.x - oc.block0;
+  const int x0 = (blk % oc.strips_x) * kOut;
+  const int y0 = (blk / oc.strips_x) * prm.rows;
+  const int y_end = min(y0 + prm.rows, H);   // output rows [y0, y_end)
+  const int tid = threadIdx.x;
+  if (tid < P * 12) {
+    const int p = tid / 12, k = tid % 12;
+    tp[p][k] = k < kTaps ? prm.taps[o][p * kTaps + k] : 0.0f;
   }
+
+  const int gx = x0 - kHalo + tid;
+  const float* col = oc.base + min(max(gx, 0), W - 1);
+  auto load = [&](int y) {
+    return __ldg(col + (size_t)min(max(y, 0), H - 1) * W);
+  };
+  // DoG rows y0 - 1 .. y_end feed output rows y0 .. y_end - 1.
+  float w[kTaps];
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) w[k] = load(y0 - 1 - kR + k);
+  float next = load(y0 + kR);
+  float d0[D], d1[D], d2[D];   // own column's DoG, rows r - 2, r - 1, r
+#pragma unroll
+  for (int d = 0; d < D; ++d) d0[d] = d1[d] = d2[d] = 0.0f;
+  const bool row_pass = tid >= kR && tid < kThreads - kR;
+  const bool nms = tid >= kHalo && tid < kHalo + kOut && gx < W;
+  const float thresh = prm.thresh, edge_limit = prm.edge_limit;
   __syncthreads();
 
-  const int gx = x0 + tx;
-  const int gy = y0 + ty;
-  const bool inb = gy >= 1 && gy <= H - 2 && gx >= 1 && gx <= W - 2;
-  const int cy = ty + 1, cx = tx + 1;
-  float best = -1.0f;
-  float sel[11];
+  int slot = 0;   // ring slot of DoG row r
+  for (int r = y0 - 1; r <= y_end; ++r) {
+    // Column sums of row r, one shared row per plane.
 #pragma unroll
-  for (int q = 0; q < 11; ++q) sel[q] = 0.0f;
-
-  for (int p = 0; p < n_planes; ++p) {
-    const float* t = &tp[p * kTaps];
-    for (int e = tid; e < kHY * kSW; e += kThreads) {
-      const int r = e / kSW, c = e % kSW;
+    for (int p = 0; p < P; ++p) {
+      const float4 ta = *reinterpret_cast<const float4*>(&tp[p][0]);
+      const float4 tb = *reinterpret_cast<const float4*>(&tp[p][4]);
+      const float t8 = tp[p][8];
+      const float t[kTaps] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w, t8};
       float acc = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kTaps; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(t[k], slab[r + k][c]));
-      colb[r][c] = acc;
+      for (int k = 0; k < kTaps; ++k) acc = __fadd_rn(acc, __fmul_rn(t[k], w[k]));
+      cs[p][tid] = acc;
     }
-    __syncthreads();
-    const int cur = p & 1;
-    for (int e = tid; e < kHY * kHX; e += kThreads) {
-      const int r = e / kHX, c = e % kHX;
-      float acc = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kTaps; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(t[k], colb[r][c + k]));
-      blur[cur][r][c] = acc;
-      if (p >= 1) dog[(p - 1) % 3][r][c] = __fsub_rn(acc, blur[cur ^ 1][r][c]);
-    }
+    for (int k = 0; k < kTaps - 1; ++k) w[k] = w[k + 1];
+    w[kTaps - 1] = next;
+    next = load(r + kR + 2);
     __syncthreads();
-    if (p < 3) continue;
 
-    const int s = p - 2;  // centre DoG plane, 1..n_planes-3
-    const float(*L)[kHX] = dog[(s - 1) % 3];
-    const float(*C)[kHX] = dog[s % 3];
-    const float(*U)[kHX] = dog[(s + 1) % 3];
-    const float val = C[cy][cx];
-    float mx = -3.4e38f, mn = 3.4e38f;
+    // Row pass and DoG of row r.
+    float dn[D];
 #pragma unroll
-    for (int dy = -1; dy <= 1; ++dy) {
+    for (int d = 0; d < D; ++d) dn[d] = 0.0f;
+    if (row_pass) {
+      float prev = 0.0f;
 #pragma unroll
-      for (int dx = -1; dx <= 1; ++dx) {
-        const float a = L[cy + dy][cx + dx];
-        const float b = U[cy + dy][cx + dx];
-        mx = fmaxf(mx, fmaxf(a, b));
-        mn = fminf(mn, fminf(a, b));
-        if (dy != 0 || dx != 0) {
-          const float c = C[cy + dy][cx + dx];
-          mx = fmaxf(mx, c);
-          mn = fminf(mn, c);
+      for (int p = 0; p < P; ++p) {
+        const float4 ta = *reinterpret_cast<const float4*>(&tp[p][0]);
+        const float4 tb = *reinterpret_cast<const float4*>(&tp[p][4]);
+        const float t8 = tp[p][8];
+        const float t[kTaps] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w, t8};
+        float acc = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k)
+          acc = __fadd_rn(acc, __fmul_rn(t[k], cs[p][tid - kR + k]));
+        if (p > 0) {
+          dn[p - 1] = __fsub_rn(acc, prev);
+          ring[slot][p - 1][tid] = dn[p - 1];
         }
+        prev = acc;
       }
     }
-    bool cand = (val > fmaxf(thresh, mx)) || (val < fminf(-thresh, mn));
-    cand = cand && inb;
-
-    const float xm = C[cy][cx - 1], xp = C[cy][cx + 1];
-    const float ym = C[cy - 1][cx], yp = C[cy + 1][cx];
-    const float sm = L[cy][cx], sp = U[cy][cx];
-    const float v2 = __fmul_rn(2.0f, val);
-    const float dxx = __fsub_rn(__fsub_rn(v2, xm), xp);
-    const float dyy = __fsub_rn(__fsub_rn(v2, ym), yp);
-    const float dss = __fsub_rn(__fsub_rn(v2, sm), sp);
-    const float dxy = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(
-        __fadd_rn(C[cy + 1][cx + 1], C[cy - 1][cx - 1]), C[cy - 1][cx + 1]),
-        C[cy + 1][cx - 1]));
-    const float dxs = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(
-        __fadd_rn(U[cy][cx + 1], L[cy][cx - 1]), L[cy][cx + 1]), U[cy][cx - 1]));
-    const float dys = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(
-        __fadd_rn(U[cy + 1][cx], L[cy - 1][cx]), U[cy - 1][cx]), L[cy + 1][cx]));
-    const float ddx = __fmul_rn(0.5f, __fsub_rn(xp, xm));
-    const float ddy = __fmul_rn(0.5f, __fsub_rn(yp, ym));
-    const float dds = __fmul_rn(0.5f, __fsub_rn(sm, sp));
-    const float tra = __fadd_rn(dxx, dyy);
-    const float det = __fsub_rn(__fmul_rn(dxx, dyy), __fmul_rn(dxy, dxy));
-    const float t2 = __fmul_rn(tra, tra);
-    cand = cand && det > 0.0f && t2 > 0.0f && t2 < __fmul_rn(edge_limit, det);
-    const float r = cand ? fabsf(val) : -1.0f;
-    if (r > best) {  // strict: the first maximum over scales wins
-      best = r;
-      sel[0] = (float)(s - 1);
-      sel[1] = val;
-      sel[2] = ddx;
-      sel[3] = ddy;
-      sel[4] = dds;
-      sel[5] = dxx;
-      sel[6] = dyy;
-      sel[7] = dss;
-      sel[8] = dxy;
-      sel[9] = dxs;
-      sel[10] = dys;
-    }
-  }
-
-  if (gy < H && gx < W) {
-    const size_t o = (size_t)gy * W + gx;
-    const size_t plane = (size_t)H * W;
-    resp[o] = best;
 #pragma unroll
-    for (int q = 0; q < 11; ++q) aux[q * plane + o] = sel[q];
+    for (int d = 0; d < D; ++d) {
+      d0[d] = d1[d];
+      d1[d] = d2[d];
+      d2[d] = dn[d];
+    }
+    __syncthreads();
+
+    // NMS, edge gate and coefficients at row c = r - 1.
+    const int c = r - 1;
+    if (nms && c >= y0) {
+      const int s_up = slot, s_mid = slot == 0 ? 2 : slot - 1,
+                s_lo = slot == 2 ? 0 : slot + 1;   // rows c + 1, c, c - 1
+      float lv[3][D], rv[3][D];   // x - 1 and x + 1, rows c - 1, c, c + 1
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        lv[0][d] = ring[s_lo][d][tid - 1];
+        lv[1][d] = ring[s_mid][d][tid - 1];
+        lv[2][d] = ring[s_up][d][tid - 1];
+        rv[0][d] = ring[s_lo][d][tid + 1];
+        rv[1][d] = ring[s_mid][d][tid + 1];
+        rv[2][d] = ring[s_up][d][tid + 1];
+      }
+      // Per plane: the max / min of the 3 x 3 ring around the centre,
+      // without (e) and with (f) the centre itself.
+      float emx[D], emn[D], fmx[D], fmn[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float a = fmaxf(fmaxf(fmaxf(lv[0][d], lv[1][d]), fmaxf(lv[2][d], rv[0][d])),
+                              fmaxf(fmaxf(rv[1][d], rv[2][d]), fmaxf(d0[d], d2[d])));
+        const float b = fminf(fminf(fminf(lv[0][d], lv[1][d]), fminf(lv[2][d], rv[0][d])),
+                              fminf(fminf(rv[1][d], rv[2][d]), fminf(d0[d], d2[d])));
+        emx[d] = a;
+        emn[d] = b;
+        fmx[d] = fmaxf(a, d1[d]);
+        fmn[d] = fminf(b, d1[d]);
+      }
+      const bool inb = c >= 1 && c <= H - 2 && gx >= 1 && gx <= W - 2;
+      float best = -1.0f;
+      float sel[11];
+#pragma unroll
+      for (int q = 0; q < 11; ++q) sel[q] = 0.0f;
+#pragma unroll
+      for (int s = 1; s <= P - 3; ++s) {
+        const float val = d1[s];
+        const float mx = fmaxf(fmaxf(fmx[s - 1], fmx[s + 1]), emx[s]);
+        const float mn = fminf(fminf(fmn[s - 1], fmn[s + 1]), emn[s]);
+        if (!(inb && ((val > fmaxf(thresh, mx)) || (val < fminf(-thresh, mn)))))
+          continue;
+        const float xm = lv[1][s], xp = rv[1][s];
+        const float ym = d0[s], yp = d2[s];
+        const float sm = d1[s - 1], sp = d1[s + 1];
+        const float v2 = __fmul_rn(2.0f, val);
+        const float dxx = __fsub_rn(__fsub_rn(v2, xm), xp);
+        const float dyy = __fsub_rn(__fsub_rn(v2, ym), yp);
+        const float dss = __fsub_rn(__fsub_rn(v2, sm), sp);
+        const float dxy = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(
+            __fadd_rn(rv[2][s], lv[0][s]), rv[0][s]), lv[2][s]));
+        const float dxs = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(
+            __fadd_rn(rv[1][s + 1], lv[1][s - 1]), rv[1][s - 1]), lv[1][s + 1]));
+        const float dys = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(
+            __fadd_rn(d2[s + 1], d0[s - 1]), d0[s + 1]), d2[s - 1]));
+        const float ddx = __fmul_rn(0.5f, __fsub_rn(xp, xm));
+        const float ddy = __fmul_rn(0.5f, __fsub_rn(yp, ym));
+        const float dds = __fmul_rn(0.5f, __fsub_rn(sm, sp));
+        const float tra = __fadd_rn(dxx, dyy);
+        const float det = __fsub_rn(__fmul_rn(dxx, dyy), __fmul_rn(dxy, dxy));
+        const float t2 = __fmul_rn(tra, tra);
+        if (!(det > 0.0f && t2 > 0.0f && t2 < __fmul_rn(edge_limit, det))) continue;
+        const float resp = fabsf(val);
+        if (resp > best) {   // strict: the first maximum over scales wins
+          best = resp;
+          sel[0] = (float)(s - 1);
+          sel[1] = val;
+          sel[2] = ddx;
+          sel[3] = ddy;
+          sel[4] = dds;
+          sel[5] = dxx;
+          sel[6] = dyy;
+          sel[7] = dss;
+          sel[8] = dxy;
+          sel[9] = dxs;
+          sel[10] = dys;
+        }
+      }
+      const size_t off = (size_t)c * W + gx;
+      const size_t plane = (size_t)H * W;
+      oc.resp[off] = best;
+#pragma unroll
+      for (int q = 0; q < 11; ++q) oc.aux[q * plane + off] = sel[q];
+    }
+    slot = slot == 2 ? 0 : slot + 1;
   }
+}
+
+template <int P>
+cudaError_t launch(const Params& prm, int blocks, cudaStream_t st) {
+  detect_kernel<P><<<blocks, kThreads, 0, st>>>(prm);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int sfm_detect_maps(const void* base, const void* taps,
-                               int n_planes, int H, int W, float thresh,
-                               float edge_limit, void* resp, void* aux,
-                               void* stream) {
-  if (n_planes < 3 || n_planes > kMaxPlanes || H < 1 || W < 1)
+// n_oct octaves in one launch.  bases/resps/auxs: host arrays of device
+// pointers ([H, W], [H, W], [11, H, W] f32); hs, ws: host int arrays;
+// taps: a HOST array [n_oct, n_planes, 9], copied into the launch
+// arguments.
+extern "C" int sfm_detect_maps(int n_oct, const uint64_t* bases,
+                               const uint64_t* resps, const uint64_t* auxs,
+                               const int* hs, const int* ws, const float* taps,
+                               int n_planes, int sm_count, float thresh,
+                               float edge_limit, void* stream) {
+  if (n_oct < 1 || n_oct > kMaxOctaves || n_planes < kMinPlanes ||
+      n_planes > kMaxPlanes || sm_count < 1)
     return (int)cudaErrorInvalidValue;
-  dim3 block(kTW, kTH);
-  dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH);
-  detect_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)base, (const float*)taps, n_planes, H, W, thresh,
-      edge_limit, (float*)resp, (float*)aux);
-  return (int)cudaGetLastError();
+  for (int o = 0; o < n_oct; ++o)
+    if (hs[o] < 1 || ws[o] < 1) return (int)cudaErrorInvalidValue;
+  Params prm;
+  memset(&prm, 0, sizeof(prm));
+  // Halve the strip height from 32 rows while the grid holds fewer than
+  // 4 blocks per SM (the bench's 576 x 720 octaves: 8 rows).
+  int rows = 32, blocks = 0;
+  for (;;) {
+    blocks = 0;
+    for (int o = 0; o < n_oct; ++o)
+      blocks += ((ws[o] + kOut - 1) / kOut) * ((hs[o] + rows - 1) / rows);
+    if (blocks >= 4 * sm_count || rows == 8) break;
+    rows /= 2;
+  }
+  int block0 = 0;
+  for (int o = 0; o < n_oct; ++o) {
+    Octave& oc = prm.oct[o];
+    oc.base = (const float*)bases[o];
+    oc.resp = (float*)resps[o];
+    oc.aux = (float*)auxs[o];
+    oc.H = hs[o];
+    oc.W = ws[o];
+    oc.strips_x = (ws[o] + kOut - 1) / kOut;
+    oc.block0 = block0;
+    block0 += oc.strips_x * ((hs[o] + rows - 1) / rows);
+    for (int e = 0; e < n_planes * kTaps; ++e)
+      prm.taps[o][e] = taps[o * n_planes * kTaps + e];
+  }
+  prm.n_oct = n_oct;
+  prm.rows = rows;
+  prm.thresh = thresh;
+  prm.edge_limit = edge_limit;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n_planes) {
+    case 4: return (int)launch<4>(prm, blocks, st);
+    case 5: return (int)launch<5>(prm, blocks, st);
+    case 6: return (int)launch<6>(prm, blocks, st);
+    case 7: return (int)launch<7>(prm, blocks, st);
+    case 8: return (int)launch<8>(prm, blocks, st);
+    case 9: return (int)launch<9>(prm, blocks, st);
+    default: return (int)launch<10>(prm, blocks, st);
+  }
 }

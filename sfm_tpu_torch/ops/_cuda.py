@@ -47,8 +47,10 @@ _SIGNATURES = {
     "sfm_scale_down": (_P, _I, _I, _P, _I, _P, _P),
     # src, H, W, dst, stream
     "sfm_scale_up": (_P, _I, _I, _P, _P),
-    # base, taps, n_planes, H, W, thresh, edge_limit, resp, aux, stream
-    "sfm_detect_maps": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
+    # n_octaves, then per octave (host arrays): base, resp and aux
+    # pointers, H, W; taps [n_octaves, n_planes, 9] (host floats),
+    # n_planes, sm_count, thresh, edge_limit, stream
+    "sfm_detect_maps": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, wsp,
     # d1, ori1, ori2, dup, stream
     "sfm_fused_orient_descriptor": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
@@ -61,9 +63,10 @@ _SIGNATURES = {
     # atlas, H, W, Hp, Wp, x, y, scale, ori, count, K, w2d, wsp, out, stream
     "sfm_descriptor_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                               _P, _P, _P, _P),
-    # d1, d2, valid2, n1, n2, best, second, index, stream
-    "sfm_match_top2_bf16": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
-    "sfm_match_top2_f32": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # d1, d2, valid2, n1, n2, bf16, split, cols_per_split, partial best,
+    # second, index (scratch, split > 1), best, second, index, stream
+    "sfm_match_top2": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _P),
 }
 
 
@@ -135,6 +138,18 @@ def check(code: int, name: str):
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card (sizes the kernels' grids)."""
+    i = torch.device(device).index
+    i = torch.cuda.current_device() if i is None else i
+    if i not in _SM_COUNT:
+        _SM_COUNT[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SM_COUNT[i]
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None, device=None):

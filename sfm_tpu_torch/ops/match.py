@@ -8,16 +8,28 @@ index on ties).  Invalid columns score ``s + (v - 1) * 1e3`` and the
 running values start at -2, so an invalid column can never win; the
 score matrix is never written to device memory.
 
-CUDA kernel (``csrc/match.cu``): each block keeps a 32-row tile of
-desc1 in shared memory and streams desc2 in 64-column tiles (128
-dimensions in four 32-wide slices); every thread holds a 2x4 block of
-dot products in registers, computed with f32 FMAs from bf16 (or f32)
-loads, then folds them into per-row running (best, second, index)
-registers.  The 16 partial top-2s of a row are merged in shared memory
-inside the same block, so no reduction crosses blocks.  Bound on the
-card: the 5120 x 5120 x 128 main-path problem is 6.7 GFLOP against
-2.6 MB of operands — compute bound; f32 FMAs from shared memory leave
-the tensor cores idle (``mma.sync``/``wgmma`` is later work).
+What bounds it on the card: 2 * N1 * N2 * 128 bf16 operations (6.7
+GFLOP at the bench's 5,120^2, 142 GFLOP at the up-scale's 23,552^2)
+against 2.6-12 MB of operands, so the tensor cores' rate (6.8 us and
+0.144 ms at 989 TFLOP/s); and with K = 128, only 8 k-steps per output
+tile, the per-score epilogue (penalty, compare, running top-2) costs as
+much as the products.
+
+CUDA kernel (``csrc/match.cu``), bf16 (the default): the products run
+on the tensor cores with ``wgmma`` (m64n64k16, both operands from
+shared memory).  A block of two warpgroups keeps a 128-row desc1 tile
+resident and streams its column range of desc2 through a 4-stage
+``cp.async`` ring of 64-column tiles; each warpgroup folds its 64 x 64
+f32 scores per tile into per-row running (best, second, index)
+registers in increasing column order, merges the 4 lanes of each row
+with shuffles and writes one partial per row.  The grid splits the
+columns into ranges (:func:`column_split`: from N1, N2 and the SM
+count, so the bench shape fills the card), and a merge pass folds the
+partials in range order with the lowest-index tie rule.  The tensor
+cores sum the 128 products in another order than the plain version, so
+kernel and plain version differ by f32 rounding (~1e-7).  ``bf16=False``
+keeps full-f32 FMAs on the CUDA cores (never TF32) on the same split
+grid.
 
 Plain version: the same contract in PyTorch over row chunks (the full
 score block per chunk, then max / masked max), used for CPU tensors.
@@ -30,6 +42,8 @@ import torch
 from sfm_tpu_torch.ops import _cuda
 
 _NEG = -2.0  # correlations of unit vectors live in [-1, 1]
+_ROWS_TC, _ROWS_F32, _COLS = 128, 32, 64   # csrc/match.cu kTM, kFM, kTN
+_BLOCKS_PER_SM = 8   # 2 resident blocks x ~4 waves: small blocks, little tail
 
 
 def match_top2_plain(desc1, desc2, valid2=None, *, bf16: bool = True,
@@ -63,6 +77,17 @@ def match_top2_plain(desc1, desc2, valid2=None, *, bf16: bool = True,
     return torch.cat(bests), torch.cat(seconds), torch.cat(idxs)
 
 
+def column_split(n1: int, n2: int, rows_per_block: int, sm_count: int):
+    """(split, columns per range) of the kernel's grid: enough column
+    ranges that row tiles x ranges reach ~8 blocks per SM, each range a
+    whole number of 64-column tiles and none empty."""
+    row_tiles = -(-n1 // rows_per_block)
+    col_tiles = max(1, -(-n2 // _COLS))
+    want = max(1, -(-_BLOCKS_PER_SM * sm_count // row_tiles))
+    tiles = -(-col_tiles // min(col_tiles, want))
+    return -(-col_tiles // tiles), tiles * _COLS
+
+
 def match_top2(desc1, desc2, valid2=None, *, bf16: bool = True):
     """Running top-2 correlation: CUDA kernel for CUDA tensors, plain
     PyTorch for CPU tensors.  Returns (best, second, index int32)."""
@@ -87,11 +112,17 @@ def match_top2(desc1, desc2, valid2=None, *, bf16: bool = True):
     index = torch.empty(n1, dtype=torch.int32, device=dev)
     if n1 == 0:
         return best, second, index
-    lib = _cuda.library().lib
-    fn = lib.sfm_match_top2_bf16 if bf16 else lib.sfm_match_top2_f32
-    code = fn(d1.data_ptr(), d2.data_ptr(), v2.data_ptr(), n1, n2,
-              best.data_ptr(), second.data_ptr(), index.data_ptr(),
-              _cuda.stream_ptr(dev))
+    split, cols = column_split(n1, n2, _ROWS_TC if bf16 else _ROWS_F32,
+                               _cuda.sm_count(dev))
+    ptrs = (0, 0, 0)
+    if split > 1:   # per-range partials, folded by the merge pass
+        scratch = torch.empty((3, split, n1), dtype=torch.float32, device=dev)
+        ptrs = (scratch[0].data_ptr(), scratch[1].data_ptr(),
+                scratch[2].view(torch.int32).data_ptr())
+    code = _cuda.library().lib.sfm_match_top2(
+        d1.data_ptr(), d2.data_ptr(), v2.data_ptr(), n1, n2, int(bf16), split,
+        cols, *ptrs, best.data_ptr(), second.data_ptr(), index.data_ptr(),
+        _cuda.stream_ptr(dev))
     _cuda.check(code, "match_top2")
     _cuda.LAUNCHES["match_top2"] += 1
     return best, second, index

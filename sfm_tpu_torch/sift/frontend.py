@@ -1,7 +1,7 @@
-"""SIFT frontend: base chain ([K7,] K1, K2) -> per-octave detection
-(K3) -> atlas -> fused orientation + descriptor sampling (K4, or K9
-with ``sample_window``) -> duplicate descriptors (K5) (counterpart of
-``sfm_tpu/sift/frontend.py``).
+"""SIFT frontend: base chain ([K7,] K1, K2) -> detection maps of all
+octaves (one K3 launch) and per-octave top-k -> atlas -> fused
+orientation + descriptor sampling (K4, or K9 with ``sample_window``) ->
+duplicate descriptors (K5) (counterpart of ``sfm_tpu/sift/frontend.py``).
 
 The port follows the JAX package's Pallas branch on every device:
 octave bases are packed into one atlas with 48-row edge-replicated
@@ -21,13 +21,16 @@ the port from the tensors' device.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.ops.compact import compaction_order, stable_topk_indices
+from sfm_tpu_torch.ops.detect import detect_maps_octaves
 from sfm_tpu_torch.ops.sample import (descriptor_sample, fused_orient_descriptor,
                                      fused_orient_descriptor_win)
 from sfm_tpu_torch.sift import describe, detect as detect_mod, pyramid
@@ -109,15 +112,28 @@ def _octave_cfg(cfg: SiftConfig, o: int) -> SiftConfig:
     return dataclasses.replace(cfg, max_pts_per_octave=int(cfg.octave_caps[o]))
 
 
+@functools.lru_cache(maxsize=16)
+def _tap_banks(cfg: SiftConfig) -> np.ndarray:
+    """Every octave's K3 taps (``pyramid.octave_kernel_bank``) as one
+    read-only [octaves, planes, 9] array, built on the host once per
+    configuration (~0.45 ms of numpy per image otherwise)."""
+    banks = np.stack([pyramid.octave_kernel_bank(cfg, o)
+                      for o in range(cfg.num_octaves)]).astype(np.float32)
+    banks.flags.writeable = False
+    return banks
+
+
 def detect_stage(img, cfg: SiftConfig):
-    """Base chain, per-octave detection and the atlas.  Returns
-    (atlas, detections with y in atlas rows)."""
+    """Base chain, detection maps of every octave (one K3 launch), the
+    per-octave top-k selection and the atlas.  Returns (atlas,
+    detections with y in atlas rows)."""
     bases = pyramid.base_chain(img, cfg)
     offsets, _ = atlas_layout(img.shape, cfg)
+    maps = detect_maps_octaves(bases, _tap_banks(cfg), float(cfg.thresh),
+                               float(cfg.edge_limit))
     dets = []
-    for o, (base, off) in enumerate(zip(bases, offsets)):
-        d = detect_mod.detect_fused(base, pyramid.octave_kernel_bank(cfg, o),
-                                    _octave_cfg(cfg, o))
+    for o, ((resp, aux), off) in enumerate(zip(maps, offsets)):
+        d = detect_mod.select_from_maps(resp, aux, _octave_cfg(cfg, o))
         dets.append(d._replace(y=d.y + off))
     return build_atlas(bases), dets
 

@@ -10,7 +10,11 @@ their plain versions (1e-4); K4, K5, K8 and K9 too, except their bin
 sums, which the plain versions take with einsum (K5 to 1e-5, K8 to 1e-6
 of the largest bin, K4 and K9 to 1e-3 on >= 99% of rows); K9 must equal
 K4 exactly, being the same device code on staged patches; K6's bf16
-products accumulate in another order (1e-5, argmax agreement >= 99.9%).
+products accumulate on the tensor cores in another order (1e-5, argmax
+agreement >= 99.9%), while its tie rule (lowest index, across column
+ranges of the split grid too) is held exactly.  K3's one-launch
+multi-octave form equals its per-octave launches and the plain version
+bit for bit.
 """
 
 import dataclasses
@@ -75,6 +79,100 @@ def test_detect_kernel_matches_plain(dev, pair):
         assert float((rk - rp)[both].abs().max()) <= 1e-4
         assert float((ak - ap)[:, both].abs().max()) <= 1e-4
         assert bool((rk[~ck] == -1).all())
+
+
+@pytest.mark.parametrize("shape,octaves", [((575, 719), 5), ((40, 30), 3)])
+def test_detect_octaves_launch_is_exact(dev, shape, octaves):
+    """All octaves in one launch equal the per-octave launches and the
+    plain version bit for bit (the 40 x 30 image's last octave, 10 x 7,
+    fills less than one strip)."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops.detect import (detect_maps, detect_maps_octaves,
+                                          detect_maps_plain)
+    from sfm_tpu_torch.sift import pyramid
+
+    cfg = SiftConfig(num_octaves=octaves)
+    rng = np.random.default_rng(7)
+    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+    bases = pyramid.base_chain(img, cfg)
+    taps = [pyramid.octave_kernel_bank(cfg, o) for o in range(octaves)]
+    _cuda.reset_launches()
+    multi = detect_maps_octaves(bases, taps, cfg.thresh, cfg.edge_limit)
+    assert _cuda.LAUNCHES["detect_maps"] == 1
+    n_cand = 0
+    for (rk, ak), b, t in zip(multi, bases, taps):
+        rs, as_ = detect_maps(b, t, cfg.thresh, cfg.edge_limit)
+        rp, ap = detect_maps_plain(b, t, cfg.thresh, cfg.edge_limit)
+        assert tuple(rk.shape) == tuple(b.shape) and tuple(ak.shape) == (11, *b.shape)
+        for a, b2 in ((rk, rs), (ak, as_), (rk, rp), (ak, ap)):
+            assert torch.equal(a, b2)
+        n_cand += int((rp > 0).sum())
+    assert n_cand > 0
+
+
+@pytest.mark.parametrize("n1", [1, 33, 300, 5121])
+@pytest.mark.parametrize("n2", [1, 700, 5121])
+def test_match_kernel_ragged_sizes(dev, n1, n2):
+    from sfm_tpu_torch.ops.match import match_top2, match_top2_plain
+
+    rng = np.random.default_rng(n1 * 7 + n2)
+    d1 = np.abs(rng.normal(size=(n1, 128))).astype(np.float32)
+    d2 = np.abs(rng.normal(size=(n2, 128))).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    v2 = rng.random(n2) > 0.1
+    v2[0] = True
+    args = [torch.as_tensor(a, device=dev) for a in (d1, d2, v2)]
+    bk, sk, ik = match_top2(*args)
+    bp, sp, ip = match_top2_plain(*args)
+    assert float((ik == ip).float().mean()) >= 0.999
+    assert float((bk - bp).abs().max()) <= 1e-5
+    assert float((sk - sp).abs().max()) <= 1e-5
+
+
+def test_match_ties_across_column_ranges(dev):
+    """Exact duplicate columns placed in different column ranges of the
+    split grid: the lower index wins and second equals best."""
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops.match import column_split, match_top2
+
+    n1, n2 = 256, 5121
+    split, cols = column_split(n1, n2, 128, _cuda.sm_count(dev))
+    assert split >= 3
+    rng = np.random.default_rng(3)
+    d2 = np.abs(rng.normal(size=(n2, 128))).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    # Row r's column src[r] (in range 0) duplicated exactly at
+    # src[r] + cols and src[r] + 2 cols (ranges 1 and 2).
+    src = rng.permutation(cols)[np.arange(n1) % cols]
+    for k in (1, 2):
+        d2[src + k * cols] = d2[src]
+    d1 = d2[src].copy()
+    v2 = np.ones(n2, bool)
+    best, second, idx = match_top2(*(torch.as_tensor(a, device=dev)
+                                     for a in (d1, d2, v2)))
+    np.testing.assert_array_equal(idx.cpu().numpy(), src)
+    assert torch.equal(best, second)
+    # With the first copy invalid, the next range's copy wins.
+    v2[src] = False
+    best, second, idx = match_top2(*(torch.as_tensor(a, device=dev)
+                                     for a in (d1, d2, v2)))
+    np.testing.assert_array_equal(idx.cpu().numpy(), src + cols)
+    assert torch.equal(best, second)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_match_kernel_all_columns_invalid(dev, bf16):
+    from sfm_tpu_torch.ops.match import match_top2
+
+    rng = np.random.default_rng(1)
+    d1 = torch.as_tensor(rng.normal(size=(300, 128)).astype(np.float32), device=dev)
+    d2 = torch.as_tensor(rng.normal(size=(700, 128)).astype(np.float32), device=dev)
+    best, second, idx = match_top2(d1, d2, torch.zeros(700, dtype=torch.bool,
+                                                       device=dev), bf16=bf16)
+    assert bool((best == -2.0).all()) and bool((second == -2.0).all())
+    assert not bool(idx.any())
 
 
 def _keypoints(rng, K, H, W, dev):
@@ -209,6 +307,7 @@ def test_pipeline_on_cuda_goes_through_every_kernel(dev, pair):
     assert all(_cuda.LAUNCHES[k] == 0 for k in off_path), _cuda.LAUNCHES
     assert all(n > 0 for k, n in _cuda.LAUNCHES.items() if k not in off_path), \
         _cuda.LAUNCHES
+    assert _cuda.LAUNCHES["detect_maps"] == 6   # one per image: 3 seeds x 2
     rot, tdir = np.median(np.array(errs), axis=0)
     assert rot < 1.0 and tdir < 5.0, errs
     from sfm_tpu_torch.sift import frontend

@@ -21,11 +21,13 @@ from sfm_tpu.config import SiftConfig
 from sfm_tpu.ops import image as jimage
 from sfm_tpu.ops.pallas_detect import detect_maps as jdetect_maps
 from sfm_tpu.sift import detect as jdetect
+from sfm_tpu.sift import frontend as jfrontend
 from sfm_tpu.sift import pyramid as jpyramid
 from sfm_tpu_torch import interop
 from sfm_tpu_torch.ops import image
-from sfm_tpu_torch.ops.detect import detect_maps, detect_maps_plain
-from sfm_tpu_torch.sift import detect, pyramid
+from sfm_tpu_torch.ops.detect import (detect_maps, detect_maps_octaves,
+                                      detect_maps_plain)
+from sfm_tpu_torch.sift import detect, frontend, pyramid
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.as_tensor
@@ -110,3 +112,32 @@ def test_unsupported_detect_knobs_raise(img):
                 dict(lowest_scale=1.0)):
         with pytest.raises(NotImplementedError):
             detect.detect_fused(base, taps, dataclasses.replace(TCFG, **bad))
+
+
+def test_detect_maps_octaves_cpu_route_is_per_octave_plain(img):
+    bases = pyramid.base_chain(T(img), TCFG)
+    taps = [pyramid.octave_kernel_bank(TCFG, o) for o in range(len(bases))]
+    multi = detect_maps_octaves(bases, taps, CFG.thresh, CFG.edge_limit)
+    assert len(multi) == len(bases) == CFG.num_octaves
+    for (r, a), b, t in zip(multi, bases, taps):
+        rp, ap = detect_maps_plain(b, t, CFG.thresh, CFG.edge_limit)
+        assert torch.equal(r, rp) and torch.equal(a, ap)
+    with pytest.raises(ValueError):
+        detect_maps_octaves(bases, taps[:-1], CFG.thresh, CFG.edge_limit)
+
+
+def test_detect_stage_matches_jax(img):
+    """The port's detect stage (base chain, all octaves' maps, per-octave
+    top-k, atlas) against the JAX package's Pallas route (interpret)."""
+    jcfg = dataclasses.replace(CFG, use_pallas=True, fused_detect=True,
+                               pyramid_pallas=True)
+    atlas_j, dets_j = jfrontend._detect_stage(jnp.asarray(img), jcfg)
+    atlas_t, dets_t = frontend.detect_stage(T(img), interop.config_to_torch(jcfg))
+    np.testing.assert_allclose(atlas_t.numpy(), np.array(atlas_j), atol=1e-3)
+    assert len(dets_t) == len(dets_j) == CFG.num_octaves
+    assert sum(int(np.array(d.valid).sum()) for d in dets_j) > 50
+    for dj, dt in zip(dets_j, dets_t):
+        nj, nt = int(np.array(dj.valid).sum()), int(dt.valid.sum())
+        assert abs(nt - nj) <= max(2, 0.01 * nj)
+        pj, pt = _positions(dj), _positions(dt)
+        assert len(pj & pt) >= 0.95 * len(pj)
