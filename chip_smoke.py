@@ -15,7 +15,8 @@ Phases, each of which fails the run on any error:
    K2 on its 4 octave descents plus an odd 575 x 719 image, K3 on the 5
    octave bases in one launch, which must equal its per-octave launches
    bit for bit, K4, K8 and K9 on the 2,560 capped slots, K9 also
-   against K4's own output, K5 on their duplicate subset, K6 at
+   against K4's own output, K5 on their duplicate subset and, at K4's
+   own orientations, against K4's descriptors bit for bit, K6 at
    5,120 x 5,120 x 128), with CUDA-event times for both (and the
    kernel's device time alone, its calls queued behind a spin kernel so
    the host's enqueue is hidden), each kernel's bound on the card, and,
@@ -343,8 +344,9 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     """Every kernel of a main path against its plain version on the
     card, at the shapes that path gives it: K7 (with ``up_scale``), K1
     and K2 on img1's base chain, K3 on its octave bases, K4, K8 and K9
-    on its capped sample slots (K9 also against K4's output), K5 on
-    their duplicate subset, and K6 on the descriptor sets ``s1`` x
+    on its capped sample slots (K9, and K5 at K4's orientations, also
+    against K4's output), K5 on their duplicate subset, and K6 on the
+    descriptor sets ``s1`` x
     ``s2`` (the path's own extractions of img1 and img2; extracted here
     when not given).  Launches made here are not the path's: callers
     read the launch counts before.  Returns {kernel name: record} with
@@ -510,6 +512,13 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
         f"{K} slots, {n} live, atlas {tuple(atlas.shape)}", fused_bytes, fused_ops,
         plain_reps=5)
 
+    # K5 at K4's own orientations: K4's descriptors bit for bit (one warp
+    # device function computes both).
+    r5k4 = sample.descriptor_sample(atlas, x, y, s, o1k, count)
+    e5k4 = err(r5k4, d1k)
+    gates.check(torch.equal(r5k4, d1k), f"{where}: K5 at K4's ori1 differs from "
+                f"K4's d1 by {e5k4}")
+
     # K8: raw histograms on the 16-column patch.
     e8, h8max = hold_orientation_kernel(atlas, x, y, s, count, gates, where)
     add("orientation_histogram_sample", e8,
@@ -568,7 +577,8 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
         f"{per_octave_diff} values differ (expected 0); K4 slots {K}, live {n}, "
         f"rows within 1e-3 and 0.01 deg {frac:.5f}, dup agreement {dup_agree:.5f}, "
         f"max |err| {e4:.3g} (>= 99.5%); K9 vs K4 max |err| {e9k:.3g} (expected "
-        f"0), vs plain rows {frac9:.5f}, max |err| {e9:.3g}; K8 max |err| "
+        f"0), vs plain rows {frac9:.5f}, max |err| {e9:.3g}; K5 at K4's ori1 vs "
+        f"K4's d1 max |err| {e5k4:.3g} (expected 0); K8 max |err| "
         f"{e8:.3g} of max |h| {h8max:.4g} (tolerance 1e-6 relative); "
         f"K5 duplicates {n2}, max |err| {e5:.3g} (1e-3); K6 {n1r} x {n2r} x 128, "
         f"argmax agreement {agree:.5f}, max |err| {e6:.3g} (>= 99.9%, 1e-4)")

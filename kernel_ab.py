@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B times of the port's K3 (detection maps) and K6 (matcher) kernels
-for two or more checkouts of the repository, on one card.
+"""A/B times of the port's K3 (detection maps), K4 and K5 (keypoint
+sampling) and K6 (matcher) kernels for two or more checkouts of the
+repository, on one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -9,19 +10,26 @@ Run from the repository root on a machine with an NVIDIA card:
 Each TREE is the root of a checkout (``.`` for this one); they run in
 the order given, each in a process of its own (the package has one
 name), so ``OLD NEW NEW OLD`` alternates them on the same card.  Per
-tree: the ``-Xptxas -v`` lines of its K3 and K6 kernels (registers,
-shared memory, spills), then CUDA-event milliseconds per call (mean of
-20 after 3 warm-ups) and device milliseconds alone (the calls queued
-behind a spin kernel) of
+tree: the ``-Xptxas -v`` lines of its K3, K4, K5, K6 (and K9) kernels
+(registers, shared memory, spills), then CUDA-event milliseconds per
+call (mean of 20 after 3 warm-ups) and device milliseconds alone (the
+calls queued behind a spin kernel) of
 
 - K3 on the 5 octave bases of one image: the bench path's 576 x 720
   synthetic image and the up-scale path's 1920 x 2560 base (the 960 x
   1280 rotation pair's first image up-scaled), however the tree
   launches it (one launch per image, or one per octave);
 - K6 ``match_top2`` on seeded unit descriptors at 5,120^2 x 128 and
-  23,552^2 x 128 (bf16, all columns valid).
+  23,552^2 x 128 (bf16, all columns valid);
+- K4 on the capped sample slots of that image's ``detect_stage`` and K5
+  on their duplicate subset, as ``chip_smoke.py`` builds them (the bench
+  path's config on the 576 x 720 image: 2,560 slots; up_t2.0 on the
+  960 x 1280 one: 11,776), with a digest (SHA-256) of each kernel's
+  outputs there, so that one call shows whether the trees' outputs are
+  equal bit for bit as well as their times.
 
-Prints one JSON line per tree and writes them all to
+Prints one JSON line per tree, then whether the digests agree across
+the trees, and writes the trees' records to
 ``chiprun_out/kernel_ab.json``.
 """
 
@@ -35,7 +43,7 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 _CHILD = r'''
-import importlib.util, json, os, sys
+import hashlib, importlib.util, json, os, sys
 sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "tests")]
 import numpy as np, torch
 spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[1])
@@ -43,18 +51,18 @@ timing = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(timing)   # this checkout's chip_smoke.py: the same clocks for every tree
 card_line, cuda_ms, device_ms = timing.card_line, timing.cuda_ms, timing.device_ms
 from sfm_tpu_torch.config import SiftConfig
-from sfm_tpu_torch.ops import _cuda, detect, match
+from sfm_tpu_torch.ops import _cuda, compact, detect, match, sample
 from sfm_tpu_torch.ops import pyramid as pyr
-from sfm_tpu_torch.sift import pyramid
+from sfm_tpu_torch.sift import frontend, pyramid
 from synthetic_pair import rotation_pair, synthetic_pair
 
 dev = torch.device("cuda", 0)
 lib = _cuda.library()
-out = {"tree": os.getcwd(), "card": card_line(), "ptxas": [], "ms": {}}
+out = {"tree": os.getcwd(), "card": card_line(), "ptxas": [], "ms": {}, "digest": {}}
 keep = False
 for line in lib.build_log.splitlines():
     if "Compiling entry function" in line:
-        keep = "detect" in line or "match" in line
+        keep = any(k in line for k in ("detect", "match", "fused", "descriptor"))
     if keep and ("entry" in line or "registers" in line or "spill" in line):
         out["ptxas"].append(line.strip())
 multi = getattr(detect, "detect_maps_octaves", None)
@@ -79,6 +87,36 @@ for n in (5120, 23552):
     v = torch.ones(n, dtype=torch.bool, device=dev)
     fn = lambda: match.match_top2(a, b, v)
     out["ms"][f"K6 {n}^2 x 128"] = (cuda_ms(fn), device_ms(fn))
+
+
+def digest(tensors):
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors)
+                          ).hexdigest()[:16]
+
+
+for name, img, sc in (("bench", synthetic_pair(576, 720, seed=0)["img1"],
+                       timing.slice_config().sift),
+                      ("upscale", rotation_pair(960, 1280, seed=0)["img1"],
+                       timing.upscale_config())):
+    atlas, dets = frontend.detect_stage(torch.as_tensor(img, device=dev), sc)
+    x, y, s, v, sharp = (torch.cat([getattr(d, f) for d in dets])
+                         for f in ("x", "y", "scale", "valid", "sharpness"))
+    order = frontend._sample_order(v, sharp, sc.sample_cap)
+    x, y, s, v = x[order], y[order], s[order], v[order]
+    count = v.sum().to(torch.int32)
+    fn = lambda: sample.fused_orient_descriptor(atlas, x, y, s, count)
+    d1, o1, o2, dup = fn()
+    key = f"K4 {name} {x.shape[0]} slots, {int(count)} live"
+    out["ms"][key] = (cuda_ms(fn), device_ms(fn))
+    out["digest"][key] = digest((d1, o1, o2, dup))
+    v2 = dup & v
+    od = compact.compaction_order(v2)
+    xd, yd, sd, od2 = x[od], y[od], s[od], o2[od]
+    c2 = v2.sum().to(torch.int32)
+    fn = lambda: sample.descriptor_sample(atlas, xd, yd, sd, od2, c2)
+    key = f"K5 {name} {x.shape[0]} slots, {int(c2)} live"
+    out["ms"][key] = (cuda_ms(fn), device_ms(fn))
+    out["digest"][key] = digest((fn(),))
 print(json.dumps(out))
 '''
 
@@ -97,8 +135,11 @@ def main() -> int:
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         for line in res["ptxas"]:
             print("  ptxas:", line)
-        print(json.dumps({"tree": tree, "card": res["card"], "ms": res["ms"]}), flush=True)
+        print(json.dumps({"tree": tree, "card": res["card"], "ms": res["ms"],
+                          "digest": res["digest"]}), flush=True)
         results.append(res)
+    same = all(r["digest"] == results[0]["digest"] for r in results)
+    print(f"K4/K5 output digests equal across the trees: {same}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "kernel_ab.json"), "w") as fh:
         json.dump(results, fh, indent=1)

@@ -51,18 +51,21 @@ _SIGNATURES = {
     # pointers, H, W; taps [n_octaves, n_planes, 9] (host floats),
     # n_planes, sm_count, thresh, edge_limit, stream
     "sfm_detect_maps": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
-    # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, wsp,
+    # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, sup_off, sup,
     # d1, ori1, ori2, dup, stream
     "sfm_fused_orient_descriptor": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-                                    _P, _P, _P, _P, _P, _P, _P),
+                                    _P, _P, _P, _P, _P, _P, _P, _P),
+    # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, wsp,
+    # d1, ori1, ori2, dup, stream
     "sfm_fused_orient_descriptor_win": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                         _P, _P, _P, _P, _P, _P, _P),
     # img, H, W, Hp, Wp, x, y, scale, count, K, out, stream
     "sfm_orientation_histogram_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                          _P, _P),
-    # atlas, H, W, Hp, Wp, x, y, scale, ori, count, K, w2d, wsp, out, stream
+    # atlas, H, W, Hp, Wp, x, y, scale, ori, count, K, w2d, sup_off, sup,
+    # out, stream
     "sfm_descriptor_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-                              _P, _P, _P, _P),
+                              _P, _P, _P, _P, _P),
     # d1, d2, valid2, n1, n2, bf16, split, cols_per_split, partial best,
     # second, index (scratch, split > 1), best, second, index, stream
     "sfm_match_top2": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

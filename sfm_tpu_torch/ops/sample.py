@@ -21,17 +21,26 @@ The TPU kernels recast bilinear sampling as tent-matrix matmuls over a
 P-column patch because the TPU has no gather unit.  The CUDA kernels
 (``csrc/sample.cu``) take the natural GPU form instead:
 
-- K4 and K5: one 128-thread block per keypoint gathers its bilinear
-  samples straight from the atlas in device memory through the
-  read-only cache.  Bound on the card: ~1,500 scattered 4-byte gathers
-  per keypoint, latency bound on the gathers; the atlas stays in L2 at
-  the bench's size.
+- K4 and K5: one warp per keypoint, four per block, no block barrier
+  (a dead slot's warp zeroes its row and leaves).  A keypoint's ~1,500
+  bilinear gathers come straight from the atlas through the read-only
+  cache; with < 8 KB touched and ~30k operations per keypoint, neither
+  bytes nor operations bound them on the card, but gather latency and
+  the instructions a keypoint issues do.  So the lanes share every
+  phase: 121 orientation samples, one bin each in sample order, the
+  smoothing and the two-peak search on shuffles and ballots, 8 of the
+  256 descriptor samples each, then 4 of the 128 outputs each, summed
+  over only their cell's nonzero spatial weights (``describe``'s
+  compact support table, 36-64 entries in increasing sample order,
+  instead of all 256 samples).  Skipping exact zeros in the same order
+  keeps every rounding, so the outputs are bit for bit those of the
+  first design's one 128-thread block per keypoint (which K9 keeps).
 - K9: one 128-thread block per 4 keypoints first copies their four
   48 x 40 patches (clamped to the atlas, which is the TPU kernels' edge
   padding) into shared memory with ``cp.async``, all four before the
-  first is used, then runs K4's device code on samples read from shared
-  memory.  The gathers become 7.7 KB of coalesced row copies per
-  keypoint, and K9 equals K4 bit for bit.
+  first is used, then runs the block-level form of K4's device code on
+  samples read from shared memory.  The gathers become 7.7 KB of
+  coalesced row copies per keypoint, and K9 equals K4 bit for bit.
 - K8: one warp per keypoint, four per block; each warp stages its
   24 x 16 patch in shared memory (1.5 KB), takes the 121 gradient
   samples from there, and each lane sums one bin in sample order.
@@ -49,6 +58,10 @@ descriptor sums, which they take with einsum.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from sfm_tpu_torch.ops import _cuda
@@ -95,9 +108,22 @@ def orientation_histogram_sample_plain(img, x, y, scale, count=None):
     return torch.where(live[:, None], h, torch.zeros_like(h))
 
 
-def _tables_on(device):
-    return (torch.as_tensor(describe.W2D, device=device),
-            torch.as_tensor(describe.WSP, device=device).contiguous())
+class _Tables(NamedTuple):
+    w2d: torch.Tensor       # [256] f32: the descriptor's Gaussian window
+    wsp: torch.Tensor       # [256, 16] f32: spatial cell weights (K9)
+    sup_off: torch.Tensor   # [17] int32: cell c's support entries start here
+    sup: torch.Tensor       # [784, 2] int32: (sample, weight's f32 bits)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(device) -> _Tables:
+    """The sampling kernels' constant tables on ``device``, copied there
+    once per device (``describe``'s window, cell weights and their
+    compact support)."""
+    sup = np.stack([describe.SUPPORT_S, describe.SUPPORT_W.view(np.int32)], axis=1)
+    return _Tables(*(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                     for a in (describe.W2D, describe.WSP, describe.SUPPORT_OFFSETS,
+                               sup)))
 
 
 def _prep(atlas, tensors, count):
@@ -113,13 +139,13 @@ def _prep(atlas, tensors, count):
     return dev, H, W, K, count
 
 
-def _fused(name, atlas, x, y, scale, count):
+def _fused(name, tables, atlas, x, y, scale, count):
     """Launch K4 (``name`` = "fused_orient_descriptor") or K9
-    ("fused_orient_descriptor_win"): the same C signature."""
+    ("fused_orient_descriptor_win"), which differ in the constant
+    ``tables`` they read."""
     dev, H, W, K, count = _prep(
         atlas, (("x", x), ("y", y), ("scale", scale)), count)
     Hp, Wp = padded_dims(H, W)
-    w2d, wsp = _tables_on(dev)
     d1 = torch.empty((K, 128), dtype=torch.float32, device=dev)
     ori1 = torch.empty(K, dtype=torch.float32, device=dev)
     ori2 = torch.empty(K, dtype=torch.float32, device=dev)
@@ -128,7 +154,7 @@ def _fused(name, atlas, x, y, scale, count):
         return d1, ori1, ori2, dup
     code = getattr(_cuda.library().lib, "sfm_" + name)(
         atlas.data_ptr(), H, W, Hp, Wp, x.data_ptr(), y.data_ptr(),
-        scale.data_ptr(), count.data_ptr(), K, w2d.data_ptr(), wsp.data_ptr(),
+        scale.data_ptr(), count.data_ptr(), K, *(a.data_ptr() for a in tables),
         d1.data_ptr(), ori1.data_ptr(), ori2.data_ptr(), dup.data_ptr(),
         _cuda.stream_ptr(dev))
     _cuda.check(code, name)
@@ -142,7 +168,9 @@ def fused_orient_descriptor(atlas, x, y, scale, count=None):
     scalar, never read on the host)."""
     if not atlas.is_cuda:
         return fused_orient_descriptor_plain(atlas, x, y, scale, count)
-    return _fused("fused_orient_descriptor", atlas, x, y, scale, count)
+    t = _tables_on(atlas.device)
+    return _fused("fused_orient_descriptor", (t.w2d, t.sup_off, t.sup), atlas, x, y,
+                  scale, count)
 
 
 def fused_orient_descriptor_win(atlas, x, y, scale, count=None):
@@ -150,7 +178,9 @@ def fused_orient_descriptor_win(atlas, x, y, scale, count=None):
     staged in shared memory by ``cp.async`` before it is sampled."""
     if not atlas.is_cuda:
         return fused_orient_descriptor_plain(atlas, x, y, scale, count)
-    return _fused("fused_orient_descriptor_win", atlas, x, y, scale, count)
+    t = _tables_on(atlas.device)
+    return _fused("fused_orient_descriptor_win", (t.w2d, t.wsp), atlas, x, y, scale,
+                  count)
 
 
 def descriptor_sample(atlas, x, y, scale, ori, count=None):
@@ -161,14 +191,14 @@ def descriptor_sample(atlas, x, y, scale, ori, count=None):
     dev, H, W, K, count = _prep(
         atlas, (("x", x), ("y", y), ("scale", scale), ("ori", ori)), count)
     Hp, Wp = padded_dims(H, W)
-    w2d, wsp = _tables_on(dev)
+    t = _tables_on(dev)
     out = torch.empty((K, 128), dtype=torch.float32, device=dev)
     if K == 0:
         return out
     code = _cuda.library().lib.sfm_descriptor_sample(
         atlas.data_ptr(), H, W, Hp, Wp, x.data_ptr(), y.data_ptr(),
-        scale.data_ptr(), ori.data_ptr(), count.data_ptr(), K, w2d.data_ptr(),
-        wsp.data_ptr(), out.data_ptr(), _cuda.stream_ptr(dev))
+        scale.data_ptr(), ori.data_ptr(), count.data_ptr(), K, t.w2d.data_ptr(),
+        t.sup_off.data_ptr(), t.sup.data_ptr(), out.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(code, "descriptor_sample")
     _cuda.LAUNCHES["descriptor_sample"] += 1
     return out

@@ -53,6 +53,21 @@ def _tables():
 W2D, WSP = _tables()
 
 
+def _support(wsp: np.ndarray):
+    """The compact form of ``wsp`` that K4 and K5 walk: (offsets [17]
+    int32, s [n] int32, w [n] float32), where entries offsets[c] ..
+    offsets[c + 1] - 1 are cell c's nonzero weights (s, wsp[s, c]) in
+    increasing s (n = 784: 36 to 64 per cell instead of 256)."""
+    cells = [np.flatnonzero(wsp[:, c]) for c in range(wsp.shape[1])]
+    offsets = np.cumsum([0] + [len(s) for s in cells]).astype(np.int32)
+    s = np.concatenate(cells).astype(np.int32)
+    w = wsp[s, np.repeat(np.arange(len(cells)), np.diff(offsets))]
+    return offsets, s, w.astype(np.float32)
+
+
+SUPPORT_OFFSETS, SUPPORT_S, SUPPORT_W = _support(WSP)
+
+
 def normalize_descriptors(desc):
     """Two-pass normalization with the 0.2 clamp."""
     n1 = torch.sqrt(torch.sum(desc * desc, dim=-1, keepdim=True))
@@ -61,9 +76,11 @@ def normalize_descriptors(desc):
     return desc / torch.clamp(n2, min=1e-12)
 
 
-def raw_descriptors(img, x0, y0a, fx, fy, scale, orientation_deg):
-    """Unnormalized [K, 128] descriptors at patch-relative keypoints
-    (``ops.image.patch_origin``)."""
+def descriptor_samples(img, x0, y0a, fx, fy, scale, orientation_deg):
+    """The 256 rotated samples of each keypoint at patch-relative
+    positions (``ops.image.patch_origin``): (grad [K, 256] windowed
+    gradient magnitudes, angi [K, 256] angle bins 0..7 as floats, angf
+    [K, 256] the fractions toward bin angi + 1)."""
     dev = img.device
     theta = orientation_deg * _RAD
     ca = torch.cos(theta)[:, None]
@@ -81,7 +98,15 @@ def raw_descriptors(img, x0, y0a, fx, fy, scale, orientation_deg):
     grad = torch.as_tensor(W2D, device=dev) * torch.sqrt(dx * dx + dy * dy)
     ang = (4.0 / math.pi) * torch.atan2(dy, dx) + 4.0
     angi = torch.clamp(torch.floor(ang), 0.0, 7.0)
-    angf = ang - angi
+    return grad, angi, ang - angi
+
+
+def raw_descriptors(img, x0, y0a, fx, fy, scale, orientation_deg):
+    """Unnormalized [K, 128] descriptors at patch-relative keypoints
+    (``ops.image.patch_origin``)."""
+    dev = img.device
+    grad, angi, angf = descriptor_samples(img, x0, y0a, fx, fy, scale,
+                                          orientation_deg)
     angi2 = torch.where(angi + 1.0 > 7.0, torch.zeros_like(angi), angi + 1.0)
     bins = torch.arange(8, device=dev, dtype=torch.float32)
     wa = (torch.where(angi[..., None] == bins, (1.0 - angf)[..., None], 0.0)

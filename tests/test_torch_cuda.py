@@ -9,7 +9,8 @@ Tolerances: K1, K2, K7 and K3 evaluate the same IEEE roundings as
 their plain versions (1e-4); K4, K5, K8 and K9 too, except their bin
 sums, which the plain versions take with einsum (K5 to 1e-5, K8 to 1e-6
 of the largest bin, K4 and K9 to 1e-3 on >= 99% of rows); K9 must equal
-K4 exactly, being the same device code on staged patches; K6's bf16
+K4 exactly, and K5 at K4's own orientations K4's descriptors, each pair
+evaluating the same roundings in the same order; K6's bf16
 products accumulate on the tensor cores in another order (1e-5, argmax
 agreement >= 99.9%), while its tie rule (lowest index, across column
 ranges of the split grid too) is held exactly.  K3's one-launch
@@ -246,6 +247,49 @@ def test_window_kernel_equals_fused_kernel(dev, shape):
     assert float((row[:198] <= 1e-3).float().mean()) >= 0.99
     assert float((win[3] == dp)[:198].float().mean()) >= 0.99
     assert not bool(win[0][198:].any()) and not bool(win[3][198:].any())
+
+
+@pytest.mark.parametrize("shape", [(192, 256), (30, 40), (200, 130)])
+def test_descriptor_kernel_at_fused_orientation_equals_fused(dev, shape):
+    """K5 on K4's (x, y, scale, ori1) gives K4's d1 bit for bit: both run
+    one warp device function for the descriptor."""
+    from sfm_tpu_torch.ops import sample
+
+    rng = np.random.default_rng(6)
+    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+    x, y, s = _border_keypoints(rng, 203, *shape, dev)
+    count = torch.tensor(198, device=dev)
+    d1, o1, _, _ = sample.fused_orient_descriptor(img, x, y, s, count)
+    assert torch.equal(sample.descriptor_sample(img, x, y, s, o1, count), d1)
+    assert bool(d1[:198].any(dim=1).all())
+
+
+@pytest.mark.parametrize("K,count", [(1, 0), (1, 1), (13, 0), (13, 7), (13, 13),
+                                     (203, 203)])
+def test_sample_kernels_ragged_slots(dev, K, count):
+    """K4 and K5 at slot counts that fill no whole block (4 warps), with
+    none, some or all live: rows >= count exactly zero, live rows equal
+    to the same keypoints' rows in a batch of 203, one launch each."""
+    from sfm_tpu_torch.ops import _cuda, sample
+
+    rng = np.random.default_rng(8)
+    img = torch.as_tensor((rng.random((192, 256)) * 255).astype(np.float32),
+                          device=dev)
+    x, y, s = _border_keypoints(rng, 203, 192, 256, dev)
+    o = torch.as_tensor(rng.uniform(0, 360, 203).astype(np.float32), device=dev)
+    full4 = sample.fused_orient_descriptor(img, x, y, s)
+    full5 = sample.descriptor_sample(img, x, y, s, o)
+    c = torch.tensor(count, device=dev)
+    _cuda.reset_launches()
+    out4 = sample.fused_orient_descriptor(img, x[:K], y[:K], s[:K], c)
+    out5 = sample.descriptor_sample(img, x[:K], y[:K], s[:K], o[:K], c)
+    torch.cuda.synchronize()
+    assert (_cuda.LAUNCHES["fused_orient_descriptor"],
+            _cuda.LAUNCHES["descriptor_sample"]) == (1, 1)
+    for a, b in zip((*out4, out5), (*full4, full5)):
+        assert a.shape[0] == K
+        assert torch.equal(a[:count], b[:count])
+        assert not bool(a[count:].any())
 
 
 @pytest.mark.parametrize("bf16", [False, True])

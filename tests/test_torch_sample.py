@@ -1,6 +1,7 @@
 """Parity: the port's sampling kernels' plain versions (K4 fused
 orientation + descriptor, K5 descriptor) against the JAX package's
-Pallas kernels in interpret mode.
+Pallas kernels in interpret mode; and the compact cell-support table
+that the CUDA K4 and K5 walk in place of the full spatial weights.
 
 Tolerances: the TPU kernels sample through tent-matrix matmuls and a
 polynomial atan2 (|err| < 1e-6 rad), the port through gathers and
@@ -19,6 +20,7 @@ import torch
 from synthetic_pair import synthetic_pair
 from sfm_tpu.ops import pallas_sample
 from sfm_tpu.sift import describe as jdescribe
+from sfm_tpu_torch.ops.image import patch_origin
 from sfm_tpu_torch.ops.sample import descriptor_sample, fused_orient_descriptor
 from sfm_tpu_torch.sift import describe
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -81,3 +83,74 @@ def test_descriptor_sample_plain_matches_pallas(rng):
     # The port's normalization equals the JAX package's.
     np.testing.assert_allclose(describe.normalize_descriptors(T(dt)).numpy(),
                                _norm(dt), atol=1e-6)
+
+
+def test_support_table_lists_the_nonzero_cell_weights():
+    """Per cell, exactly WSP's nonzero weights, in increasing sample
+    order: the entries the full 256-sample scan does not skip."""
+    off, s, w = describe.SUPPORT_OFFSETS, describe.SUPPORT_S, describe.SUPPORT_W
+    assert off.shape == (17,) and off[0] == 0
+    assert off[-1] == len(s) == len(w) == np.count_nonzero(describe.WSP) == 784
+    for c in range(16):
+        sc = s[off[c]:off[c + 1]]
+        np.testing.assert_array_equal(sc, np.flatnonzero(describe.WSP[:, c]))
+        assert 36 <= len(sc) <= 64 and (np.diff(sc) > 0).all()
+        np.testing.assert_array_equal(w[off[c]:off[c + 1]], describe.WSP[sc, c])
+
+
+def _sums_in_kernel_order(grad, angi, angf):
+    """[K, 128] descriptor sums as the CUDA K4 and K5 take them: output
+    (cell c, bin a) adds (grad * (1 - angf)) * w where angi = a, else
+    (grad * angf) * w where angi + 1 (mod 8) = a, over cell c's support
+    entries (s, w) in table order, each step rounded to float32."""
+    one = np.float32(1.0)
+    t0, t1 = grad * (one - angf), grad * angf
+    ai = angi.astype(np.int64)
+    ai2 = np.where(ai + 1 > 7, 0, ai + 1)
+    bins = np.arange(8)
+    off = describe.SUPPORT_OFFSETS
+    out = np.zeros((grad.shape[0], 16, 8), np.float32)
+    for c in range(16):
+        for e in range(off[c], off[c + 1]):
+            s, w = describe.SUPPORT_S[e], describe.SUPPORT_W[e]
+            add0 = ai[:, s, None] == bins
+            add1 = ~add0 & (ai2[:, s, None] == bins)
+            acc = out[:, c]
+            acc = np.where(add0, acc + (t0[:, s] * w)[:, None], acc)
+            out[:, c] = np.where(add1, acc + (t1[:, s] * w)[:, None], acc)
+    return out.reshape(-1, 128)
+
+
+def test_support_table_sums_reproduce_the_plain_descriptors(rng):
+    """The kernels' per-cell loop over the support table gives
+    ``raw_descriptors``' einsum (another summation order) within 1e-6
+    of each row's largest entry."""
+    img, x, y, sc = _setup(rng)
+    ori = rng.uniform(0, 360, len(x)).astype(np.float32)
+    img_t = T(img)
+    x0, y0a, fx, fy = patch_origin(T(x), T(y), *img.shape)
+    args = (img_t, x0, y0a, fx, fy, T(sc), T(ori))
+    grad, angi, angf = (a.numpy() for a in describe.descriptor_samples(*args))
+    raw = describe.raw_descriptors(*args).numpy()
+    loop = _sums_in_kernel_order(grad, angi, angf)
+    assert np.isfinite(loop).all() and (raw.max(axis=1) > 0).all()
+    err = np.abs(loop - raw).max(axis=1)
+    assert (err <= 1e-6 * np.abs(raw).max(axis=1)).all(), err.max()
+
+
+def test_kernel_tables_are_cached_per_device_and_packed():
+    """The tables the sampling kernels read are built once per device;
+    the support table travels as int32 pairs (sample, weight's float32
+    bits) that the kernels read as one 8-byte load."""
+    from sfm_tpu_torch.ops import sample
+
+    cpu = torch.device("cpu")
+    t = sample._tables_on(cpu)
+    assert sample._tables_on(cpu) is t
+    sup = t.sup.numpy()
+    assert sup.dtype == np.int32 and sup.shape == (784, 2) and t.sup.is_contiguous()
+    np.testing.assert_array_equal(sup[:, 0], describe.SUPPORT_S)
+    np.testing.assert_array_equal(sup[:, 1].view(np.float32), describe.SUPPORT_W)
+    np.testing.assert_array_equal(t.sup_off.numpy(), describe.SUPPORT_OFFSETS)
+    np.testing.assert_array_equal(t.wsp.numpy(), describe.WSP)
+    np.testing.assert_array_equal(t.w2d.numpy(), describe.W2D)
