@@ -14,7 +14,10 @@ Phases, each of which fails the run on any error:
    PyTorch version on the same card tensors (K1 on a 576 x 720 image,
    K2 on its 4 octave descents plus an odd 575 x 719 image, K3 on the 5
    octave bases in one launch, which must equal its per-octave launches
-   bit for bit, K4, K8 and K9 on the 2,560 capped slots, K9 also
+   bit for bit, K3's gated mode (``lowest_scale > 0``) at the gates of
+   ``lowest_scale=1.0`` and at gate 0, and K3 on 9 octaves at 11
+   planes, whose two launches must equal the per-octave ones, K4, K8
+   and K9 on the 2,560 capped slots, K9 also
    against K4's own output, K5 on their duplicate subset and, at K4's
    own orientations, against K4's descriptors bit for bit, K6 at
    5,120 x 5,120 x 128), with CUDA-event times for both (and the
@@ -37,10 +40,13 @@ Phases, each of which fails the run on any error:
    the same pair and against the pair's exact homography.  Then every
    kernel against its plain version on that run's inputs, at its shapes
    (K7 on the two 960 x 1280 images, K1 on the 1920 x 2560 base, K2 on
-   its 4 descents, K3 on its 5 octave bases, K4, K8 and K9 on the
+   its 4 descents, K3 in both modes on its 5 octave bases, K4, K8 and K9 on the
    11,776 capped slots of the 4,200 x 2,560 atlas, K5 on their
    duplicates, K6 on the run's own 23,552 x 23,552 x 128 descriptor
-   sets), with the tolerances of phase 3;
+   sets), with the tolerances of phase 3.  Then the same path with
+   ``lowest_scale=1.0`` (K3's gated mode), gated against the JAX
+   package's numbers at that configuration, with fewer features than
+   the ungated run;
 6. the module API at the bench path's width: ``assign_orientations``
    (K8) and ``extract_descriptors(valid=...)`` (K5) on the atlas and
    every detection slot of a real ``detect_stage`` of the 576 x 720
@@ -54,7 +60,10 @@ Phases, each of which fails the run on any error:
    CLI's defaults (the translation re-vote on) over 8 seeds, gated
    against the JAX CLI's numbers on the same PGMs
    (``tests/jax_cli_reference.py``) and the rendered pose; then
-   ``sift --up-scale --homography`` on the rotation pair's PGMs; then
+   ``sift --up-scale --homography`` on the rotation pair's PGMs, and
+   ``sift --max-pts 4096 --up-scale`` (20,480 detection slots) and
+   ``sift --octaves 9`` (two K3 launches per image), both with
+   ``--homography`` and gated against the JAX CLI; then
    ``run_two_view`` at ``PipelineConfig()`` as it stands;
 9. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
    names a directory holding ``viff.000.ppm`` and ``viff.001.ppm``
@@ -63,12 +72,13 @@ Phases, each of which fails the run on any error:
 
 Each of the main paths (phases 4 to 8) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
-it goes through, K3 exactly once per image it extracts, and together
-they launch all nine.  The last lines of
+it goes through, K3 exactly once per image and 8 octaves it extracts,
+and together they launch all nine.  The last lines of
 standard output are the kernels' JSON record (each kernel's
 ``launches`` summed over those paths, its ``max_abs_err`` the largest
 of phases 3, 5 and 6, its times and bound phase 3's, or phase 5's for
-K7 and phase 6's for K8),
+K7 and phase 6's for K8; K3's gated mode under ``gated``, at both
+shapes),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 A detailed JSON report goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -100,14 +110,19 @@ MAX_TDIR_DEG = 2.0
 # seed=0)), up_t2.0 + MatchConfig(), bench_upscale's H-fit with
 # PRNGKey(0), measured on CPU through the CPU auto route (use_pallas,
 # fused_detect and pyramid_pallas resolve off: XLA conv pyramid, XLA
-# sampling, chunked XLA matcher): features 10,444 / 10,935, ratio-test
-# matches 4,705, 296 H-fit candidates (5 of them > 3 px off H_gt),
-# H-fit 6,597, and H within a median 0.1183 px / max 0.3123 px of H_gt
-# on the 16 x 12 grid (PERF.md).  Features, candidates and H-fit must
-# reach 90%; the H error gates are 3x the JAX package's, rounded down.
+# sampling, chunked XLA matcher) by `tests/jax_cli_reference.py --parts
+# upscale`: features 10,444 / 10,935, ratio-test matches 4,705, 296
+# H-fit candidates (5 of them > 3 px off H_gt), H-fit 6,597, and H
+# within a median 0.1183 px / max 0.3123 px of H_gt on the 16 x 12 grid
+# (PERF.md).  Features, candidates and H-fit must reach 90%; the H error
+# gates are 3x the JAX package's, rounded down.
 JAX_UPSCALE = {"n1": 10444, "n2": 10935, "candidates": 296, "numfit": 6597}
 MAX_H_MEDIAN_PX = 0.35
 MAX_H_MAX_PX = 0.93
+# The same with lowest_scale=1.0 (the scale gate; the same script):
+# features 10,442 / 10,933, 4,705 matches, 296 candidates (5 wrong),
+# H-fit 6,597, H error 0.1184 / 0.3124 px.  The same gates.
+JAX_UPSCALE_LOWEST = {"n1": 10442, "n2": 10933, "candidates": 296, "numfit": 6597}
 
 # The JAX package's CLI (`python -m sfm_tpu reconstruct a.pgm b.pgm
 # --focal 792 --seed s`, its defaults otherwise: tvote_rounds=1,
@@ -127,6 +142,16 @@ JAX_DEFAULT = {"matches": 1869.0, "inliers": 1600.0, "valid": 1600.0, "px": 0.10
 # The CLI's homography is its RANSAC fit alone (no improve_homography):
 # held to H_gt more loosely than the up-scale path's H-fit.
 MAX_CLI_H_MEDIAN_PX = 1.0
+# The JAX CLI's `sift ra.pgm rb.pgm <options> --homography` on the
+# rotation pair's PGMs (`tests/jax_cli_reference.py --parts sift`):
+# features per image (H vs H_gt median 0.305 px and 0.791 px).  The
+# port's CLI must reach 90% of each, and the H median bound above.
+JAX_CLI_SIFT = {
+    # 5 x 4,096 = 20,480 detection slots: the rank-major interleave.
+    "max_pts_4096_up_scale": (["--max-pts", "4096", "--up-scale"], (3332, 3327)),
+    # 9 x 2,048 = 18,432 slots, and K3 in two launches per image.
+    "octaves_9": (["--octaves", "9"], (3270, 3220)),
+}
 
 # One NVIDIA H100 SXM (NVIDIA's data sheet; dense rates at 700 W): the
 # least time a kernel could take is the larger of its bytes over the
@@ -152,10 +177,20 @@ PEAK_OPS = 32 * 11
 # unless the bench path does not launch it.
 TIMED_AT = {"scale_up": "upscale", "orientation_histogram_sample": "module_api"}
 
-# Images each main path extracts (phases 4 to 8): K3 launches once per
-# image, all octaves together.
-PATH_IMAGES = {"bench": 16, "upscale": 2, "module_api": 1, "upscale_window": 2,
-               "cli": 18}
+
+def k3_launches(images: int, octaves: int = 5) -> int:
+    """K3 launches once per image for every 8 octaves, all together."""
+    return images * -(-octaves // 8)
+
+
+# K3 launches on each main path (phases 4 to 8): 16 bench images; 2
+# up-scale, 1 module-API, 2 window and 2 gated images; the CLI's 16
+# reconstruct images, then 3 sift runs of 2 images, the last with 9
+# octaves.
+PATH_K3 = {"bench": k3_launches(16), "upscale": k3_launches(2),
+           "module_api": k3_launches(1), "upscale_window": k3_launches(2),
+           "upscale_lowest": k3_launches(2),
+           "cli": k3_launches(16) + k3_launches(4) + k3_launches(2, 9)}
 # Kernels each main path must launch (phases 4 to 8).
 _BASE = {"blur9", "scale_down", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
@@ -164,6 +199,7 @@ PATH_KERNELS = {
     "module_api": _BASE | {"orientation_histogram_sample"},
     "upscale_window": _BASE | {"scale_up", "fused_orient_descriptor_win",
                                "match_top2"},
+    "upscale_lowest": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
 }
 
@@ -316,13 +352,13 @@ KERNEL_SOURCES = {
 
 def check_path_launches(path, launches, gates):
     """Every kernel the path goes through launched in its run, K3 once
-    per image."""
+    per image and 8 octaves."""
     for name in sorted(PATH_KERNELS[path]):
         gates.check(launches[name] > 0, f"kernel {name} was not launched on the "
                     f"{path} path")
-    gates.check(launches["detect_maps"] == PATH_IMAGES[path],
-                f"K3 launched {launches['detect_maps']} times on the {path} path "
-                f"for {PATH_IMAGES[path]} images")
+    gates.check(launches["detect_maps"] == PATH_K3[path],
+                f"K3 launched {launches['detect_maps']} times on the {path} path, "
+                f"not {PATH_K3[path]}")
 
 
 def _conv(taps, stride, dev):
@@ -338,6 +374,79 @@ def _conv(taps, stride, dev):
         conv.weight.copy_(torch.as_tensor(np.outer(taps, taps), device=dev))
     conv.requires_grad_(False)
     return conv
+
+
+# Operations of K3's gated mode per candidate beyond the lean mode's,
+# counted from the source: the edge ratio, the adjugate (15), its
+# determinant (5), the reciprocal, the three offsets (18), the fallback
+# test and divisions (8), the clamps (6), the scale gate (4, exp2 as
+# one) and the sharpness (6).
+GATED_SOLVE_OPS = 70
+
+
+def hold_gated_k3(bases, taps, sc, scale_gates, gates, where):
+    """K3's gated mode (one launch) against its plain version on each
+    octave: both round the same operations in the same order (exp2f as
+    torch.exp2), so they must agree bit for bit."""
+    from sfm_tpu_torch.ops import detect
+
+    multi = detect.detect_maps_octaves(bases, taps, sc.thresh, sc.edge_limit,
+                                       scale_gates, lean=False)
+    n_cand = n_diff = 0
+    err = 0.0
+    for (rk, ak), b, tp, g in zip(multi, bases, taps, scale_gates):
+        rp, ap = detect.detect_maps_plain(b, tp, sc.thresh, sc.edge_limit, g,
+                                          lean=False)
+        gates.check(tuple(ak.shape) == (6, *b.shape),
+                    f"{where}: K3 gated aux shape {tuple(ak.shape)}")
+        n_cand += int((rp > 0).sum())
+        n_diff += int((rk != rp).sum()) + int((ak != ap).sum())
+        err = max(err, float((rk - rp).abs().max()), float((ak - ap).abs().max()))
+    gates.check(n_cand > 1000, f"{where}: K3 gated mode only {n_cand} candidates")
+    gates.check(n_diff == 0, f"{where}: K3 gated mode differs from its plain "
+                f"version in {n_diff} values (max |err| {err})")
+    return {"candidates": n_cand, "values_differing": n_diff, "max_abs_err": err}
+
+
+def hold_k3_nine_octaves(img, gates):
+    """K3 past 8 octaves at 11 planes (``num_scales=8``): the 9 octave
+    bases of ``img`` take two launches, lean and gated (octave o at
+    1 / 2**o), equal bit for bit to one launch per octave and to the
+    plain version."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import _cuda, detect
+    from sfm_tpu_torch.sift import frontend, pyramid
+
+    cfg = SiftConfig(num_octaves=9, num_scales=8)
+    bases = pyramid.base_chain(img, cfg)
+    taps = frontend._tap_banks(cfg)
+    out = {}
+    for mode, scale_gates in (("lean", [0.0] * 9),
+                              ("gated", [1.0 / 2 ** o for o in range(9)])):
+        lean = mode == "lean"
+        n0 = _cuda.LAUNCHES["detect_maps"]
+        multi = detect.detect_maps_octaves(bases, taps, cfg.thresh, cfg.edge_limit,
+                                           scale_gates, lean)
+        launches = _cuda.LAUNCHES["detect_maps"] - n0
+        per_octave = plain = 0
+        for (rk, ak), b, tp, g in zip(multi, bases, taps, scale_gates):
+            rs, as_ = detect.detect_maps(b, tp, cfg.thresh, cfg.edge_limit, g, lean)
+            rp, ap = detect.detect_maps_plain(b, tp, cfg.thresh, cfg.edge_limit, g, lean)
+            per_octave += int((rk != rs).sum()) + int((ak != as_).sum())
+            plain += int((rk != rp).sum()) + int((ak != ap).sum())
+        out[mode] = {"launches": launches, "per_octave_values_differing": per_octave,
+                     "plain_values_differing": plain}
+        gates.check(launches == 2, f"9 octaves ({mode}): {launches} K3 launches, not 2")
+        gates.check(per_octave == 0, f"9 octaves ({mode}): the grouped launches "
+                    f"differ from the per-octave ones in {per_octave} values")
+        gates.check(plain == 0, f"9 octaves ({mode}): {plain} values differ from plain")
+    log(f"K3 on 9 octave bases of {tuple(img.shape)} at 11 planes, lean / gated: "
+        f"{out['lean']['launches']} / {out['gated']['launches']} launches; values "
+        f"differing, grouped vs per-octave {out['lean']['per_octave_values_differing']}"
+        f" / {out['gated']['per_octave_values_differing']}, vs plain "
+        f"{out['lean']['plain_values_differing']} / "
+        f"{out['gated']['plain_values_differing']} (expected 0)")
+    return out
 
 
 def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
@@ -461,6 +570,28 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
         4 * n_px * (1 + 12),
         n_px * (4 * planes * ntap + (planes - 1) + 26 * (planes - 3)),
         plain_reps=5)
+    # K3's gated mode, as lowest_scale=1.0 runs it (octave o gated at
+    # 1 / 2**o), and at gate 0 with lean=False; timed at the former.
+    # Out: resp + 6 maps.
+    _, subs = frontend.atlas_layout(tuple(img1.shape), sc)
+    lowest = [1.0 / sub for sub in subs]
+    held_g = {"lowest_scale_1": hold_gated_k3(bases, taps, sc, lowest, gates, where),
+              "gate_0": hold_gated_k3(bases, taps, sc, [0.0] * len(bases), gates,
+                                      where)}
+    g_rec = kernel_record(
+        "detect_maps", max(h["max_abs_err"] for h in held_g.values()),
+        lambda: detect.detect_maps_octaves(bases, taps, sc.thresh, sc.edge_limit,
+                                           lowest, lean=False),
+        lambda: [detect.detect_maps_plain(b, tp, sc.thresh, sc.edge_limit, g,
+                                          lean=False)
+                 for b, tp, g in zip(bases, taps, lowest)],
+        f"{len(bases)} octave bases of {H}x{W}, gates {lowest}", 4 * n_px * (1 + 7),
+        n_px * (4 * planes * ntap + (planes - 1) + 26 * (planes - 3))
+        + GATED_SOLVE_OPS * held_g["lowest_scale_1"]["candidates"], plain_reps=5)
+    rec["detect_maps"]["gated"] = {
+        **{k: g_rec[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "bytes", "ops", "shapes")},
+        **held_g}
 
     # K4, K8 and K9 on the capped sample slots of the path's detect stage.
     atlas, dets = frontend.detect_stage(img1, sc)
@@ -470,7 +601,7 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     v = torch.cat([d.valid for d in dets])
     sharp = torch.cat([d.sharpness for d in dets])
     n_slots = min(sc.sample_cap, x.shape[0]) if sc.sample_cap else x.shape[0]
-    order = frontend._sample_order(v, sharp, sc.sample_cap)
+    order = frontend._sample_order(v, sharp, sc.sample_cap, [d.x.shape[0] for d in dets])
     x, y, s, v = x[order], y[order], s[order], v[order]
     count = v.sum().to(torch.int32)
     K = x.shape[0]
@@ -574,7 +705,11 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
         f"{e1:.3g}; K2 {shapes} {e2:.3g} (expected 0, tolerance 1e-4); K3 "
         f"candidates {n_cand}, mismatched pixels {mism}, max |err| {e3:.3g} "
         f"(tolerance <= max(2, 0.1%), 1e-4), one launch vs per octave "
-        f"{per_octave_diff} values differ (expected 0); K4 slots {K}, live {n}, "
+        f"{per_octave_diff} values differ (expected 0); K3 gated vs plain at "
+        f"lowest_scale=1 / gate 0: candidates {held_g['lowest_scale_1']['candidates']}"
+        f" / {held_g['gate_0']['candidates']}, values differing "
+        f"{held_g['lowest_scale_1']['values_differing']} / "
+        f"{held_g['gate_0']['values_differing']} (expected 0); K4 slots {K}, live {n}, "
         f"rows within 1e-3 and 0.01 deg {frac:.5f}, dup agreement {dup_agree:.5f}, "
         f"max |err| {e4:.3g} (>= 99.5%); K9 vs K4 max |err| {e9k:.3g} (expected "
         f"0), vs plain rows {frac9:.5f}, max |err| {e9:.3g}; K5 at K4's ori1 vs "
@@ -816,6 +951,32 @@ def upscale_path(rpair, gates, dev, card):
     return res, kernels
 
 
+def upscale_lowest_path(rpair, ref, gates, dev, card):
+    """Phase 5, second run: the up-scale path with ``lowest_scale=1.0``
+    (K3's gated mode, octave o gated at 1 / 2**o), gated against the
+    JAX package's numbers at the same configuration; the gate must
+    remove features against the ungated run ``ref``."""
+    import dataclasses
+
+    cfg = dataclasses.replace(upscale_config(), lowest_scale=1.0)
+    res, _, _ = upscale_run(rpair, cfg, dev)
+    _log_upscale(res, rpair, card, "up-scale lowest_scale=1.0")
+    gates.check(res["finite"], "up-scale lowest_scale=1.0: non-finite H")
+    for k in ("n1", "n2", "candidates", "numfit"):
+        gates.check(res[k] >= 0.9 * JAX_UPSCALE_LOWEST[k],
+                    f"up-scale lowest_scale=1.0 {k} {res[k]} < 90% of the JAX "
+                    f"package's {JAX_UPSCALE_LOWEST[k]}")
+    gates.check(res["h_median_px"] <= MAX_H_MEDIAN_PX,
+                f"up-scale lowest_scale=1.0 H median error {res['h_median_px']:.4f} px")
+    gates.check(res["h_max_px"] <= MAX_H_MAX_PX,
+                f"up-scale lowest_scale=1.0 H max error {res['h_max_px']:.4f} px")
+    gates.check(res["n1"] + res["n2"] < ref["n1"] + ref["n2"],
+                f"up-scale lowest_scale=1.0: features {res['n1']} / {res['n2']}, "
+                f"not fewer than the ungated {ref['n1']} / {ref['n2']}")
+    check_path_launches("upscale_lowest", res["launches"], gates)
+    return res
+
+
 def upscale_window_path(rpair, ref, gates, dev, card):
     """Phase 7: the up-scale path with ``sample_window=True`` (K9 in
     place of K4); the same features, matches, H-fit and H error as the
@@ -981,6 +1142,13 @@ def cli_phase(pair, rpair, gates, dev, card):
         with contextlib.redirect_stdout(io.StringIO()):
             rc_sift = cli.main(["sift", ra, rb, "--up-scale", "--homography",
                                 "--metrics", sj, "--out", os.path.join(d, "f.npz")])
+        more = {}
+        for name, (extra, _) in JAX_CLI_SIFT.items():
+            js = os.path.join(d, f"sift_{name}.json")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["sift", ra, rb, *extra, "--homography", "--metrics", js])
+            with open(js) as fh:
+                more[name] = (rc, json.load(fh))
         launches = dict(_cuda.LAUNCHES)
         with open(sj) as fh:
             sm = json.load(fh)
@@ -1030,6 +1198,30 @@ def cli_phase(pair, rpair, gates, dev, card):
                 "cli sift: homography inliers")
     gates.check(sift_res["h_median_px"] <= MAX_CLI_H_MEDIAN_PX,
                 f"cli sift: H median error {sift_res['h_median_px']:.4f} px")
+    # Past 16,384 detection slots and past 8 octaves, against the JAX CLI.
+    sift_more = {}
+    for name, (rc, m) in more.items():
+        jref = JAX_CLI_SIFT[name][1]
+        grid = homography_grid_errors(np.array(m["H"]), rpair["H_gt"], h, w)
+        r = sift_more[name] = {
+            "rc": rc, "features": m["features"], "jax_features": list(jref),
+            "matches": m["num_matches"], "homography_inliers": m["homography_inliers"],
+            "h_median_px": float(np.median(grid)), "h_max_px": float(grid.max()),
+            "extract_ms": m["stage_times"]["extract"]["total_ms"]}
+        opts = " ".join(JAX_CLI_SIFT[name][0])
+        log(f"cli sift {opts} --homography on the rotation pair's PGMs: features "
+            f"{r['features']} (JAX CLI {list(jref)}), matches {r['matches']}, "
+            f"homography inliers {r['homography_inliers']}, H vs H_gt median "
+            f"{r['h_median_px']:.4f} px, max {r['h_max_px']:.4f} px, extraction of "
+            f"both {r['extract_ms']:.1f} ms")
+        gates.check(rc == 0, f"cli sift {opts}: exit code {rc}")
+        for i in (0, 1):
+            gates.check(r["features"][i] >= 0.9 * jref[i],
+                        f"cli sift {opts}: features {r['features'][i]} < 90% of the "
+                        f"JAX CLI's {jref[i]}")
+        gates.check(r["h_median_px"] <= MAX_CLI_H_MEDIAN_PX,
+                    f"cli sift {opts}: H median error {r['h_median_px']:.4f} px")
+    sift_res["more"] = sift_more
     log(f"launches in the CLI runs: {launches}")
     check_path_launches("cli", launches, gates)
     # The package default as it stands (4,096 hypotheses at 1e-6).
@@ -1120,10 +1312,13 @@ def main() -> int:
     held = {"bench": hold_kernels(img1, torch.as_tensor(pair["img2"], device=dev),
                                   cfg.sift, gates, "bench path")}
     check_odd_scale_down(img1, gates)
+    nine = hold_k3_nine_octaves(img1, gates)
     launches = {}
     launches["bench"], med, rows = end_to_end(pair, cfg, gates, dev, card)
     up, held["upscale"] = upscale_path(rpair, gates, dev, card)
     launches["upscale"] = up["launches"]
+    low = upscale_lowest_path(rpair, up, gates, dev, card)
+    launches["upscale_lowest"] = low["launches"]
     api, launches["module_api"], held["module_api"] = module_api(img1, cfg.sift,
                                                                   gates, dev)
     win = upscale_window_path(rpair, up, gates, dev, card)
@@ -1148,16 +1343,23 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "kernels": records, "median": med,
-                   "seeds": rows, "upscale": up, "module_api": api,
+                   "seeds": rows, "upscale": up, "upscale_lowest_scale_1": low,
+                   "k3_nine_octaves": nine, "module_api": api,
                    "upscale_window": win, "cli": cli_res, "dino": dino_res,
                    "gate_failures": gates.failures}, fh, indent=1, default=float)
     if gates.failures:
         log(f"{len(gates.failures)} gate(s) failed")
         return 1
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms")} for r in records]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    gated_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    line = []
+    for r in records:
+        line.append({k: r[k] for k in keys})
+        if "gated" in r:   # K3's gated mode, at the bench and up-scale shapes
+            line[-1]["gated"] = {p: {k: h["gated"][k] for k in gated_keys}
+                                 for p, h in r["held_at"].items() if "gated" in h}
+    print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,11 @@ package's, frozen and hashable, so a configuration written for one
 package reads the same in the other (``interop.config_to_torch`` maps a
 JAX config onto these classes by field name).  Several fields select
 between TPU code paths of the JAX package (``use_pallas``,
-``fused_detect``, ``pyramid_pallas``, ``blur_matmul``, ``detect_lean``,
+``fused_detect``, ``pyramid_pallas``, ``blur_matmul``,
 ``sample_block_k``, ``topk_block``, ``MatchConfig.use_pallas``); the
 port accepts them and resolves its own path from the tensors' device.
+``detect_lean`` picks the detection kernel's mode, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -45,7 +47,10 @@ class SiftConfig:
     # sampled); None, False and "blk" run K4.  Both compute the same
     # function.
     sample_window: bool | str | None = None
-    detect_lean: bool | None = None      # JAX dispatch knob; ignored
+    # Detection kernel mode: None = lean unless lowest_scale > 0 (whose
+    # scale gate needs the gated mode); True with lowest_scale > 0
+    # raises.
+    detect_lean: bool | None = None
     # Candidate selection: only "topk" (exact, strongest first) is
     # ported; "approx" and "compact" raise.
     select: str = "topk"

@@ -1,19 +1,24 @@
-// K3: fused blur bank + DoG + 26-neighbour NMS + lean refinement
-// coefficients, for every octave base of an image in one launch.
+// K3: fused blur bank + DoG + 26-neighbour NMS + refinement, for up to
+// 8 octave bases of an image in one launch.
 //
-// Replaces sfm_tpu/ops/pallas_detect.py:259 detect_maps (lean kernel).
-// See sfm_tpu_torch/ops/detect.py for the contract and the design note.
+// Replaces sfm_tpu/ops/pallas_detect.py:259 detect_maps, both modes:
+// lean (11 raw refinement coefficients; the solve runs after top-k) and
+// gated (_make_kernel's non-lean body: the quadratic solve at every
+// candidate, the edge-ratio and scale gates, 6 maps).  See
+// sfm_tpu_torch/ops/detect.py for the contract and the design note.
 //
 // What bounds it: device memory at the large octaves (one f32 read of
-// the base and 12 f32 maps written per pixel, 52 B/px), launch latency
-// and a thin grid at the small ones, and on the way the ~300 blur
-// multiply-adds per pixel with their operand traffic.
+// the base and 12 f32 maps written per pixel in the lean mode, 7 in the
+// gated one: 52 / 32 B/px), launch latency and a thin grid at the small
+// ones, and on the way the ~300 blur multiply-adds per pixel with their
+// operand traffic.
 //
-// Design.  One launch covers all octaves: the grid is flat, and a block
-// finds its octave (base, outputs, H, W, first block) and that octave's
-// taps in a by-value parameter table.  A 128-thread block owns a strip
-// of 118 output columns and `rows` output rows; thread t owns slab
-// column x0 - 5 + t and walks down the strip one row per step:
+// Design.  One launch covers up to 8 octaves: the grid is flat, and a
+// block finds its octave (base, outputs, H, W, first block, scale gate)
+// and that octave's taps in a by-value parameter table.  A 128-thread
+// block owns a strip of 118 output columns and `rows` output rows;
+// thread t owns slab column x0 - 5 + t and walks down the strip one row
+// per step:
 //   - the 9-row vertical window of its base column lives in registers
 //     (one new load per row, prefetched a row ahead) and serves all
 //     planes, since only the taps differ;
@@ -23,12 +28,13 @@
 //   - the 3 latest DoG rows of each plane stay in registers for the
 //     thread's own column, and a 3-row shared ring gives the x +- 1
 //     neighbours; after a second barrier, threads 5..122 run the
-//     26-neighbour test and, where it passes, the edge gate and the 11
-//     coefficients for the row above, and write its 12 maps.
+//     26-neighbour test and, where it passes, the mode's gates and maps
+//     for the row above.
 // Two barriers per row, not two per plane; nothing but the maps reaches
 // device memory.  Every arithmetic step uses the _rn intrinsics, in the
 // plain PyTorch version's order (column pass, then row pass, taps in
-// order), so the two agree bit for bit.
+// order; refine_from_coeffs for the gated mode), and exp2f as
+// torch.exp2, so the two agree bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -42,13 +48,13 @@ constexpr int kHalo = kR + 1;              // blur radius + NMS ring
 constexpr int kOut = kThreads - 2 * kHalo; // output columns per strip
 constexpr int kMaxOctaves = 8;
 constexpr int kMinPlanes = 4;
-constexpr int kMaxPlanes = 10;
+constexpr int kMaxPlanes = 13;             // num_scales <= 10
 
 struct Octave {
   const float* base;
-  float* resp;
-  float* aux;
+  float* out;             // resp [H, W], then aux [NQ, H, W]
   int H, W, strips_x, block0;
+  float gate;             // gated mode: exp2((s - 1 + pds) / S) >= gate
 };
 
 struct Params {
@@ -57,12 +63,24 @@ struct Params {
   int n_oct;
   int rows;               // output rows per strip
   float thresh, edge_limit;
+  float inv_s;            // float32(1 / S), S = planes - 3
 };
+static_assert(sizeof(Params) <= 4096, "kernel parameters exceed 4 KB");
 
-template <int P>
+__device__ __forceinline__ float guard(float v) {
+  return fabsf(v) < 1e-20f ? 1e-20f : v;
+}
+
+// torch.clamp(v, -1, 1), NaN passing through.
+__device__ __forceinline__ float clamp1(float v) {
+  return v < -1.0f ? -1.0f : (v > 1.0f ? 1.0f : v);
+}
+
+template <int P, bool Lean>
 __global__ void __launch_bounds__(kThreads)
 detect_kernel(const __grid_constant__ Params prm) {
   constexpr int D = P - 1;                 // DoG planes
+  constexpr int NQ = Lean ? 11 : 6;        // aux maps
   __shared__ __align__(16) float tp[P][12];
   __shared__ float cs[P][kThreads];
   __shared__ float ring[3][D][kThreads];
@@ -76,8 +94,8 @@ detect_kernel(const __grid_constant__ Params prm) {
   const int y0 = (blk / oc.strips_x) * prm.rows;
   const int y_end = min(y0 + prm.rows, H);   // output rows [y0, y_end)
   const int tid = threadIdx.x;
-  if (tid < P * 12) {
-    const int p = tid / 12, k = tid % 12;
+  for (int i = tid; i < P * 12; i += kThreads) {
+    const int p = i / 12, k = i % 12;
     tp[p][k] = k < kTaps ? prm.taps[o][p * kTaps + k] : 0.0f;
   }
 
@@ -150,7 +168,7 @@ detect_kernel(const __grid_constant__ Params prm) {
     }
     __syncthreads();
 
-    // NMS, edge gate and coefficients at row c = r - 1.
+    // NMS, gates and maps at row c = r - 1.
     const int c = r - 1;
     if (nms && c >= y0) {
       const int s_up = slot, s_mid = slot == 0 ? 2 : slot - 1,
@@ -181,9 +199,9 @@ detect_kernel(const __grid_constant__ Params prm) {
       }
       const bool inb = c >= 1 && c <= H - 2 && gx >= 1 && gx <= W - 2;
       float best = -1.0f;
-      float sel[11];
+      float sel[NQ];
 #pragma unroll
-      for (int q = 0; q < 11; ++q) sel[q] = 0.0f;
+      for (int q = 0; q < NQ; ++q) sel[q] = 0.0f;
 #pragma unroll
       for (int s = 1; s <= P - 3; ++s) {
         const float val = d1[s];
@@ -210,50 +228,112 @@ detect_kernel(const __grid_constant__ Params prm) {
         const float tra = __fadd_rn(dxx, dyy);
         const float det = __fsub_rn(__fmul_rn(dxx, dyy), __fmul_rn(dxy, dxy));
         const float t2 = __fmul_rn(tra, tra);
-        if (!(det > 0.0f && t2 > 0.0f && t2 < __fmul_rn(edge_limit, det))) continue;
-        const float resp = fabsf(val);
-        if (resp > best) {   // strict: the first maximum over scales wins
-          best = resp;
-          sel[0] = (float)(s - 1);
-          sel[1] = val;
-          sel[2] = ddx;
-          sel[3] = ddy;
-          sel[4] = dds;
-          sel[5] = dxx;
-          sel[6] = dyy;
-          sel[7] = dss;
-          sel[8] = dxy;
-          sel[9] = dxs;
-          sel[10] = dys;
+        if constexpr (Lean) {
+          if (!(det > 0.0f && t2 > 0.0f && t2 < __fmul_rn(edge_limit, det))) continue;
+          const float resp = fabsf(val);
+          if (resp > best) {   // strict: the first maximum over scales wins
+            best = resp;
+            sel[0] = (float)(s - 1);
+            sel[1] = val;
+            sel[2] = ddx;
+            sel[3] = ddy;
+            sel[4] = dds;
+            sel[5] = dxx;
+            sel[6] = dyy;
+            sel[7] = dss;
+            sel[8] = dxy;
+            sel[9] = dxs;
+            sel[10] = dys;
+          }
+        } else {
+          // refine_from_coeffs, operation for operation.
+          const float edge = __fdiv_rn(t2, guard(det));
+          const float idxx = __fsub_rn(__fmul_rn(dyy, dss), __fmul_rn(dys, dys));
+          const float idxy = __fsub_rn(__fmul_rn(dys, dxs), __fmul_rn(dxy, dss));
+          const float idxs = __fsub_rn(__fmul_rn(dxy, dys), __fmul_rn(dyy, dxs));
+          const float idyy = __fsub_rn(__fmul_rn(dxx, dss), __fmul_rn(dxs, dxs));
+          const float idys = __fsub_rn(__fmul_rn(dxy, dxs), __fmul_rn(dxx, dys));
+          const float idss = det;
+          const float hdet = __fadd_rn(__fadd_rn(__fmul_rn(idxx, dxx),
+                                                 __fmul_rn(idxy, dxy)),
+                                       __fmul_rn(idxs, dxs));
+          const float idet = __fdiv_rn(1.0f, guard(hdet));
+          float pdx = __fmul_rn(idet, __fadd_rn(__fadd_rn(
+              __fmul_rn(idxx, ddx), __fmul_rn(idxy, ddy)), __fmul_rn(idxs, dds)));
+          float pdy = __fmul_rn(idet, __fadd_rn(__fadd_rn(
+              __fmul_rn(idxy, ddx), __fmul_rn(idyy, ddy)), __fmul_rn(idys, dds)));
+          float pds = __fmul_rn(idet, __fadd_rn(__fadd_rn(
+              __fmul_rn(idxs, ddx), __fmul_rn(idys, ddy)), __fmul_rn(idss, dds)));
+          if (fmaxf(fmaxf(fabsf(pdx), fabsf(pdy)), fabsf(pds)) > 0.5f) {
+            pdx = __fdiv_rn(ddx, guard(dxx));
+            pdy = __fdiv_rn(ddy, guard(dyy));
+            pds = __fdiv_rn(dds, guard(dss));
+          }
+          pdx = clamp1(pdx);
+          pdy = clamp1(pdy);
+          pds = clamp1(pds);
+          if (!(edge > 0.0f && edge < edge_limit &&
+                exp2f(__fmul_rn(__fadd_rn((float)(s - 1), pds), prm.inv_s)) >= oc.gate))
+            continue;
+          const float resp = fabsf(val);
+          if (resp > best) {   // strict: the first maximum over scales wins
+            best = resp;
+            sel[0] = (float)(s - 1);
+            sel[1] = pdx;
+            sel[2] = pdy;
+            sel[3] = pds;
+            sel[4] = __fadd_rn(val, __fmul_rn(0.5f, __fadd_rn(__fadd_rn(
+                __fmul_rn(ddx, pdx), __fmul_rn(ddy, pdy)), __fmul_rn(dds, pds))));
+            sel[5] = edge;
+          }
         }
       }
       const size_t off = (size_t)c * W + gx;
       const size_t plane = (size_t)H * W;
-      oc.resp[off] = best;
+      oc.out[off] = best;
 #pragma unroll
-      for (int q = 0; q < 11; ++q) oc.aux[q * plane + off] = sel[q];
+      for (int q = 0; q < NQ; ++q) oc.out[(q + 1) * plane + off] = sel[q];
     }
     slot = slot == 2 ? 0 : slot + 1;
   }
 }
 
-template <int P>
+template <int P, bool Lean>
 cudaError_t launch(const Params& prm, int blocks, cudaStream_t st) {
-  detect_kernel<P><<<blocks, kThreads, 0, st>>>(prm);
+  detect_kernel<P, Lean><<<blocks, kThreads, 0, st>>>(prm);
   return cudaGetLastError();
+}
+
+template <bool Lean>
+cudaError_t launch_planes(int n_planes, const Params& prm, int blocks,
+                          cudaStream_t st) {
+  switch (n_planes) {
+    case 4: return launch<4, Lean>(prm, blocks, st);
+    case 5: return launch<5, Lean>(prm, blocks, st);
+    case 6: return launch<6, Lean>(prm, blocks, st);
+    case 7: return launch<7, Lean>(prm, blocks, st);
+    case 8: return launch<8, Lean>(prm, blocks, st);
+    case 9: return launch<9, Lean>(prm, blocks, st);
+    case 10: return launch<10, Lean>(prm, blocks, st);
+    case 11: return launch<11, Lean>(prm, blocks, st);
+    case 12: return launch<12, Lean>(prm, blocks, st);
+    default: return launch<13, Lean>(prm, blocks, st);
+  }
 }
 
 }  // namespace
 
-// n_oct octaves in one launch.  bases/resps/auxs: host arrays of device
-// pointers ([H, W], [H, W], [11, H, W] f32); hs, ws: host int arrays;
-// taps: a HOST array [n_oct, n_planes, 9], copied into the launch
-// arguments.
+// n_oct octaves in one launch.  bases/outs: host arrays of device
+// pointers (base [H, W] and out [1 + C, H, W] f32: resp, then the C =
+// 11 (lean) or 6 (gated) aux maps); hs, ws: host int arrays; taps: a
+// HOST array [n_oct, n_planes, 9] and gates a HOST array [n_oct], both
+// copied into the launch arguments.
 extern "C" int sfm_detect_maps(int n_oct, const uint64_t* bases,
-                               const uint64_t* resps, const uint64_t* auxs,
-                               const int* hs, const int* ws, const float* taps,
-                               int n_planes, int sm_count, float thresh,
-                               float edge_limit, void* stream) {
+                               const uint64_t* outs, const int* hs,
+                               const int* ws, const float* taps,
+                               const float* gates, int n_planes, int lean,
+                               int sm_count, float thresh, float edge_limit,
+                               void* stream) {
   if (n_oct < 1 || n_oct > kMaxOctaves || n_planes < kMinPlanes ||
       n_planes > kMaxPlanes || sm_count < 1)
     return (int)cudaErrorInvalidValue;
@@ -275,12 +355,12 @@ extern "C" int sfm_detect_maps(int n_oct, const uint64_t* bases,
   for (int o = 0; o < n_oct; ++o) {
     Octave& oc = prm.oct[o];
     oc.base = (const float*)bases[o];
-    oc.resp = (float*)resps[o];
-    oc.aux = (float*)auxs[o];
+    oc.out = (float*)outs[o];
     oc.H = hs[o];
     oc.W = ws[o];
     oc.strips_x = (ws[o] + kOut - 1) / kOut;
     oc.block0 = block0;
+    oc.gate = gates[o];
     block0 += oc.strips_x * ((hs[o] + rows - 1) / rows);
     for (int e = 0; e < n_planes * kTaps; ++e)
       prm.taps[o][e] = taps[o * n_planes * kTaps + e];
@@ -289,14 +369,8 @@ extern "C" int sfm_detect_maps(int n_oct, const uint64_t* bases,
   prm.rows = rows;
   prm.thresh = thresh;
   prm.edge_limit = edge_limit;
+  prm.inv_s = (float)(1.0 / (n_planes - 3));
   cudaStream_t st = (cudaStream_t)stream;
-  switch (n_planes) {
-    case 4: return (int)launch<4>(prm, blocks, st);
-    case 5: return (int)launch<5>(prm, blocks, st);
-    case 6: return (int)launch<6>(prm, blocks, st);
-    case 7: return (int)launch<7>(prm, blocks, st);
-    case 8: return (int)launch<8>(prm, blocks, st);
-    case 9: return (int)launch<9>(prm, blocks, st);
-    default: return (int)launch<10>(prm, blocks, st);
-  }
+  return (int)(lean ? launch_planes<true>(n_planes, prm, blocks, st)
+                    : launch_planes<false>(n_planes, prm, blocks, st));
 }

@@ -47,10 +47,12 @@ _SIGNATURES = {
     "sfm_scale_down": (_P, _I, _I, _P, _I, _P, _P),
     # src, H, W, dst, stream
     "sfm_scale_up": (_P, _I, _I, _P, _P),
-    # n_octaves, then per octave (host arrays): base, resp and aux
-    # pointers, H, W; taps [n_octaves, n_planes, 9] (host floats),
-    # n_planes, sm_count, thresh, edge_limit, stream
-    "sfm_detect_maps": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    # n_octaves (<= 8), then per octave (host arrays): base and out
+    # ([1 + C, H, W]: resp, then aux) pointers, H, W; taps [n_octaves,
+    # n_planes, 9] and scale gates [n_octaves] (host floats), n_planes,
+    # lean (1: 11 aux maps, 0: the gated mode's 6), sm_count, thresh,
+    # edge_limit, stream
+    "sfm_detect_maps": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, sup_off, sup,
     # d1, ori1, ori2, dup, stream
     "sfm_fused_orient_descriptor": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,

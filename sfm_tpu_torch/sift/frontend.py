@@ -1,22 +1,25 @@
 """SIFT frontend: base chain ([K7,] K1, K2) -> detection maps of all
-octaves (one K3 launch) and per-octave top-k -> atlas -> fused
+octaves (one K3 launch per 8 octaves) and per-octave top-k -> atlas -> fused
 orientation + descriptor sampling (K4, or K9 with ``sample_window``) ->
 duplicate descriptors (K5) (counterpart of ``sfm_tpu/sift/frontend.py``).
 
 The port follows the JAX package's Pallas branch on every device:
 octave bases are packed into one atlas with 48-row edge-replicated
 guards, detections are capped to the ``sample_cap`` globally strongest
-slots, K4 samples every slot, and the second-peak duplicates are
+slots (over more than 16,384 slots: a rank-major interleave of the
+octaves), K4 samples every slot, and the second-peak duplicates are
 compacted and sampled by K5 into a fixed second half (slot i + K) —
 no re-compaction.  ``sample_window`` True, "hbm" or "vmem" samples
 through K9, which stages each keypoint's patch in shared memory and
 computes K4's function bit for bit; None, False and "blk" (the JAX
 package's paged-atlas form of K4) run K4.  With ``up_scale`` the image
 is upsampled 2x before the prefilter and keypoints are halved back to
-input pixels at the end.  The TPU-only dispatch knobs (``use_pallas``,
-``fused_detect``, ``pyramid_pallas``, ``blur_matmul``, ``dup_split``,
-``detect_lean``, ``sample_block_k``, ``topk_block``) are resolved by
-the port from the tensors' device.
+input pixels at the end.  ``lowest_scale > 0`` runs K3's gated mode
+with the scale gate ``lowest_scale / 2**o`` in octave o; ``detect_lean``
+picks K3's mode as in the JAX package.  The TPU-only dispatch knobs
+(``use_pallas``, ``fused_detect``, ``pyramid_pallas``, ``blur_matmul``,
+``dup_split``, ``sample_block_k``, ``topk_block``) are resolved by the
+port from the tensors' device.
 """
 
 from __future__ import annotations
@@ -124,13 +127,16 @@ def _tap_banks(cfg: SiftConfig) -> np.ndarray:
 
 
 def detect_stage(img, cfg: SiftConfig):
-    """Base chain, detection maps of every octave (one K3 launch), the
-    per-octave top-k selection and the atlas.  Returns (atlas,
-    detections with y in atlas rows)."""
+    """Base chain, detection maps of every octave (one K3 launch per 8
+    octaves; octave o gated at ``lowest_scale / 2**o``), the per-octave
+    top-k selection and the atlas.  Returns (atlas, detections with y in
+    atlas rows)."""
     bases = pyramid.base_chain(img, cfg)
-    offsets, _ = atlas_layout(img.shape, cfg)
+    offsets, subs = atlas_layout(img.shape, cfg)
     maps = detect_maps_octaves(bases, _tap_banks(cfg), float(cfg.thresh),
-                               float(cfg.edge_limit))
+                               float(cfg.edge_limit),
+                               [float(cfg.lowest_scale / s) for s in subs],
+                               cfg.detect_lean)
     dets = []
     for o, ((resp, aux), off) in enumerate(zip(maps, offsets)):
         d = detect_mod.select_from_maps(resp, aux, _octave_cfg(cfg, o))
@@ -138,18 +144,37 @@ def detect_stage(img, cfg: SiftConfig):
     return build_atlas(bases), dets
 
 
-def _sample_order(valid, sharp, cap: int):
+@functools.lru_cache(maxsize=16)
+def rank_major_order(seg: tuple, device=None) -> torch.Tensor:
+    """Slot permutation taking rank r of every octave that has one, in
+    octave order, before rank r + 1 of any; ``seg``: the octaves' slot
+    counts.  For equal counts this is the JAX package's ``(j % n_oct) *
+    per + j // n_oct`` (``sfm_tpu/sift/frontend.py:326-330``); with
+    unequal ``octave_caps`` it follows the true segment bounds, where
+    the JAX formula is not a permutation."""
+    rank = np.concatenate([np.arange(n) for n in seg])
+    octave = np.repeat(np.arange(len(seg)), seg)
+    return torch.as_tensor(np.lexsort((octave, rank)), device=device)
+
+
+def _sample_order(valid, sharp, cap: int, seg=None):
     """Slot order for the sampling kernels: valid slots first, capped to
-    the ``cap`` globally strongest detections (ties to the lowest slot)."""
+    the ``cap`` globally strongest detections (ties to the lowest slot).
+    Over more than 16,384 slots, the JAX package's cheaper order: each
+    octave's slots are strongest first (top-k), so a rank-major
+    interleave of the octaves (``seg``: their slot counts) and a stable
+    valid-first compaction; if the cap binds, it keeps each octave's
+    strongest prefix."""
     K_slots = valid.shape[0]
     if not cap or cap >= K_slots:
         return compaction_order(valid)
-    if K_slots > 16384:
-        raise NotImplementedError(
-            "sample_cap below more than 16384 detection slots (the JAX "
-            "package's rank-major interleave) is not ported")
-    strength = torch.where(valid, sharp.abs(), torch.full_like(sharp, -1.0))
-    return stable_topk_indices(strength, cap)
+    if K_slots <= 16384:
+        strength = torch.where(valid, sharp.abs(), torch.full_like(sharp, -1.0))
+        return stable_topk_indices(strength, cap)
+    if seg is None or sum(seg) != K_slots:
+        raise ValueError(f"{K_slots} slots need their per-octave counts, got {seg}")
+    perm = rank_major_order(tuple(seg), valid.device)
+    return perm[compaction_order(valid[perm])[:cap]]
 
 
 def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
@@ -169,7 +194,7 @@ def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
     off_a = torch.cat([torch.full((k,), float(o), dtype=torch.float32, device=dev)
                        for k, o in zip(n, offsets)])
 
-    order = _sample_order(valid_a, sharp_a, cfg.sample_cap)
+    order = _sample_order(valid_a, sharp_a, cfg.sample_cap, n)
     x_a, y_a, sc_a, sharp_a, edge_a, valid_a, oct_a, sub_a, off_a = (
         a[order] for a in (x_a, y_a, sc_a, sharp_a, edge_a, valid_a, oct_a,
                            sub_a, off_a))

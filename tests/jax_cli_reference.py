@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
-"""The JAX package's command-line driver on the synthetic pair: the
-reference numbers that ``chip_smoke.py``'s CLI phase gates the port's
-``python -m sfm_tpu_torch reconstruct`` (and ``run_two_view`` at
-``PipelineConfig()``) against.
+"""The JAX package's reference numbers that ``chip_smoke.py`` gates the
+port against, measured on the CPU (JAX's CPU route).
 
-Run from the repository root (on the CPU; JAX's CPU route):
+Run from the repository root:
 
-    JAX_PLATFORMS=cpu python3 tests/jax_cli_reference.py [--seeds 8]
+    JAX_PLATFORMS=cpu python3 tests/jax_cli_reference.py \\
+        [--seeds 8] [--parts reconstruct,default,sift,upscale]
 
-Writes ``synthetic_pair(576, 720, seed=0)`` as 8-bit PGMs
-(``synthetic_pair.write_pgm``, the same files the CLI phase writes),
-runs ``sfm_tpu.cli.main(["--platform", "cpu", "reconstruct", a, b,
-"--focal", "792", "--seed", s, ...])`` in-process once per seed (the
-CLI's defaults otherwise: 1024 points per octave, 1024 hypotheses,
-threshold 3e-6, ``tvote_rounds=1``), and prints each seed's metrics,
-its rotation and translation-direction errors against the rendered
-pose, and the medians as one JSON line; then ``run_two_view`` at
-``PipelineConfig()`` as it stands (seed 0) on the float pair, as one
-JSON line.  ``--seeds 0`` runs only the latter.
+Parts, each printing one JSON line per run:
+
+- ``reconstruct``: ``synthetic_pair(576, 720, seed=0)`` written as 8-bit
+  PGMs (``synthetic_pair.write_pgm``, the same files the CLI phase
+  writes), ``sfm_tpu.cli.main(["--platform", "cpu", "reconstruct", a,
+  b, "--focal", "792", "--seed", s, ...])`` in-process once per seed
+  (the CLI's defaults otherwise: 1024 points per octave, 1024
+  hypotheses, threshold 3e-6, ``tvote_rounds=1``): each seed's metrics,
+  its rotation and translation-direction errors against the rendered
+  pose, then the medians;
+- ``default``: ``run_two_view`` at ``PipelineConfig()`` as it stands
+  (seed 0) on the float pair;
+- ``sift``: ``rotation_pair(960, 1280, seed=0)`` as PGMs through
+  ``sift --max-pts 4096 --up-scale --homography`` (20,480 detection
+  slots) and ``sift --octaves 9 --homography`` (18,432): features,
+  matches, homography inliers and the H error against the pair's exact
+  homography on a 16 x 12 grid;
+- ``upscale``: tools/bench_upscale.py's up_t2.0 configuration with
+  ``lowest_scale`` 0 and 1.0 on the float rotation pair: features,
+  ratio-test matches, bench_upscale's H-fit (``PRNGKey(0)``: candidates,
+  those > 3 px off the exact homography, the 3 px count) and the H
+  error.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import statistics
@@ -34,47 +48,48 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
 
-from synthetic_pair import pose_errors_deg, synthetic_pair, write_pgm  # noqa: E402
+from synthetic_pair import (homography_grid_errors, pose_errors_deg,  # noqa: E402
+                            rotation_pair, synthetic_pair, transfer_px, write_pgm)
+
+PARTS = ("reconstruct", "default", "sift", "upscale")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--seeds", type=int, default=8)
-    args = ap.parse_args()
+def reconstruct(d, seeds):
     from sfm_tpu import cli
 
     pair = synthetic_pair(576, 720, seed=0)
+    a, b = os.path.join(d, "a.pgm"), os.path.join(d, "b.pgm")
+    write_pgm(a, pair["img1"])
+    write_pgm(b, pair["img2"])
     rows = []
-    with tempfile.TemporaryDirectory() as d:
-        a, b = os.path.join(d, "a.pgm"), os.path.join(d, "b.pgm")
-        write_pgm(a, pair["img1"])
-        write_pgm(b, pair["img2"])
-        for seed in range(args.seeds):
-            js = os.path.join(d, f"m{seed}.json")
-            cli.main(["--platform", "cpu", "reconstruct", a, b, "--focal", "792",
-                      "--out", os.path.join(d, "c.ply"), "--metrics", js,
-                      "--seed", str(seed)])
-            with open(js) as fh:
-                m = json.load(fh)
-            rot, tdir = pose_errors_deg(np.array(m["R"]), np.array(m["t"]),
-                                        pair["R"], pair["t"])
-            rows.append({"seed": seed, "matches": m["num_matches"],
-                         "inliers": m["num_inliers"], "valid": m["num_points"],
-                         "px": m["mean_reproj_px"], "rot_deg": rot,
-                         "tdir_deg": tdir})
-            print(json.dumps(rows[-1]), flush=True)
+    for seed in range(seeds):
+        js = os.path.join(d, f"m{seed}.json")
+        cli.main(["--platform", "cpu", "reconstruct", a, b, "--focal", "792",
+                  "--out", os.path.join(d, "c.ply"), "--metrics", js,
+                  "--seed", str(seed)])
+        with open(js) as fh:
+            m = json.load(fh)
+        rot, tdir = pose_errors_deg(np.array(m["R"]), np.array(m["t"]),
+                                    pair["R"], pair["t"])
+        rows.append({"seed": seed, "matches": m["num_matches"],
+                     "inliers": m["num_inliers"], "valid": m["num_points"],
+                     "px": m["mean_reproj_px"], "rot_deg": rot, "tdir_deg": tdir})
+        print(json.dumps(rows[-1]), flush=True)
     if rows:
         med = {k: statistics.median(r[k] for r in rows)
                for k in ("matches", "inliers", "valid", "px", "rot_deg", "tdir_deg")}
         med["worst_rot_deg"] = max(r["rot_deg"] for r in rows)
         med["worst_tdir_deg"] = max(r["tdir_deg"] for r in rows)
-        print(json.dumps({"jax_cli_medians": med}))
+        print(json.dumps({"jax_cli_medians": med}), flush=True)
 
+
+def default():
     import jax.numpy as jnp
 
     from sfm_tpu.config import PipelineConfig
     from sfm_tpu.models import two_view
 
+    pair = synthetic_pair(576, 720, seed=0)
     r = two_view.run_two_view(*(jnp.asarray(pair[k]) for k in ("img1", "img2", "K")),
                               PipelineConfig(), seed=0)
     rot, tdir = pose_errors_deg(np.array(r.R), np.array(r.t), pair["R"], pair["t"])
@@ -82,7 +97,99 @@ def main() -> int:
         "matches": int(r.num_matches), "inliers": int(r.num_inliers),
         "valid": int(np.array(r.point_valid).sum()),
         "px": float(np.sqrt(float(r.reproj_err) / 2) * pair["K"][0, 0]),
-        "rot_deg": rot, "tdir_deg": tdir}}))
+        "rot_deg": rot, "tdir_deg": tdir}}), flush=True)
+
+
+# The sift runs of chip_smoke.py's CLI phase beyond its first.
+SIFT_RUNS = {"max_pts_4096_up_scale": ["--max-pts", "4096", "--up-scale"],
+             "octaves_9": ["--octaves", "9"]}
+
+
+def sift(d):
+    from sfm_tpu import cli
+
+    rpair = rotation_pair(960, 1280, seed=0)
+    ra, rb = os.path.join(d, "ra.pgm"), os.path.join(d, "rb.pgm")
+    write_pgm(ra, rpair["img1"])
+    write_pgm(rb, rpair["img2"])
+    h, w = rpair["img1"].shape
+    for name, extra in SIFT_RUNS.items():
+        js = os.path.join(d, f"sift_{name}.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["--platform", "cpu", "sift", ra, rb, *extra, "--homography",
+                      "--metrics", js])
+        with open(js) as fh:
+            m = json.load(fh)
+        grid = homography_grid_errors(np.array(m["H"]), rpair["H_gt"], h, w)
+        print(json.dumps({f"jax_cli_sift_{name}": {
+            "features": m["features"], "matches": m["num_matches"],
+            "homography_inliers": m["homography_inliers"],
+            "h_median_px": float(np.median(grid)), "h_max_px": float(grid.max())}}),
+            flush=True)
+
+
+def upscale():
+    import jax
+    import jax.numpy as jnp
+
+    from sfm_tpu.config import MatchConfig, SiftConfig
+    from sfm_tpu.geometry import homography
+    from sfm_tpu.sift import frontend, match as match_mod
+
+    rpair = rotation_pair(960, 1280, seed=0)
+    img1, img2 = jnp.asarray(rpair["img1"]), jnp.asarray(rpair["img2"])
+    per = 4096
+    up_t2 = SiftConfig(num_octaves=5, max_pts_per_octave=per,
+                       octave_caps=(per, per, per // 2, per // 4, per // 8),
+                       sample_cap=16384, thresh=2.0, init_blur=1.0, up_scale=True)
+    h, w = rpair["img1"].shape
+    for lowest in (0.0, 1.0):
+        cfg = dataclasses.replace(up_t2, lowest_scale=lowest)
+        r1, r2 = frontend.extract_sift(img1, cfg), frontend.extract_sift(img2, cfg)
+        m = match_mod.match(r1.descriptors, r2.descriptors, r1.keypoints.valid,
+                            r2.keypoints.valid, MatchConfig())
+        # tools/bench_upscale.py:116-134.
+        kp1, kp2 = r1.keypoints, r2.keypoints
+        uv1 = jnp.stack([kp1.x, kp1.y], axis=-1)
+        uv2 = jnp.stack([kp2.x[m.index], kp2.y[m.index]], axis=-1)
+        slot_ok = kp1.valid & kp2.valid[m.index]
+        cand = slot_ok & (m.ambiguity < 0.80) & (m.score > 0.0)
+        hres = homography.ransac_homography(jax.random.PRNGKey(0), uv1, uv2, cand,
+                                            n_hyps=8192, threshold=25.0,
+                                            refit_iters=0)
+        H = homography.improve_homography(hres.H, uv1, uv2, cand, loops=5,
+                                          threshold=9.0)
+        errs = homography.transfer_errors(H, uv1, uv2)
+        cand = np.asarray(cand)
+        true_err = transfer_px(rpair["H_gt"], np.asarray(uv1), np.asarray(uv2))
+        grid = homography_grid_errors(np.asarray(H), rpair["H_gt"], h, w)
+        print(json.dumps({f"jax_upscale_lowest_scale_{lowest}": {
+            "n1": int(kp1.valid.sum()), "n2": int(kp2.valid.sum()),
+            "matches": int(m.valid.sum()), "candidates": int(cand.sum()),
+            "wrong_candidates": int((cand & (true_err > 3.0)).sum()),
+            "numfit": int(((errs < 9.0) & slot_ok).sum()),
+            "h_median_px": float(np.median(grid)), "h_max_px": float(grid.max())}}),
+            flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seeds", type=int, default=8)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated subset of {PARTS}")
+    args = ap.parse_args()
+    parts = args.parts.split(",")
+    if set(parts) - set(PARTS):
+        ap.error(f"unknown parts {set(parts) - set(PARTS)}")
+    with tempfile.TemporaryDirectory() as d:
+        if "reconstruct" in parts:
+            reconstruct(d, args.seeds)
+        if "default" in parts:
+            default()
+        if "sift" in parts:
+            sift(d)
+        if "upscale" in parts:
+            upscale()
     return 0
 
 

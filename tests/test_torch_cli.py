@@ -164,6 +164,18 @@ def test_cli_sift_on_cpu_equals_extract_sift(pgm_pair, tmp_path):
             assert f[f"x{i}"].shape == (m["features"][i],)
 
 
+def test_cli_sift_nine_octaves_over_16384_slots_on_cpu(tmp_path):
+    """``--octaves 9 --max-pts 4096``: 36,864 detection slots capped to
+    2,560 (the rank-major interleave), the 9th octave 1 x 1 pixel."""
+    img = str(tmp_path / "a.pgm")
+    write_pgm(img, synthetic_pair(256, 320, seed=0)["img1"])
+    js = str(tmp_path / "m.json")
+    rc = cli.main(["sift", img, "--octaves", "9", "--max-pts", "4096",
+                   "--metrics", js, "--device", "cpu"])
+    assert rc == 0
+    assert 0 < json.loads(pathlib.Path(js).read_text())["features"][0] <= 2 * 2560
+
+
 @pytest.mark.parametrize("extra", [["--mesh", "2"], ["--distributed"],
                                    ["--checkpoint", "map.npz"], ["third.pgm"]])
 def test_cli_refuses_what_is_not_ported(pgm_pair, extra):

@@ -15,7 +15,8 @@ products accumulate on the tensor cores in another order (1e-5, argmax
 agreement >= 99.9%), while its tie rule (lowest index, across column
 ranges of the split grid too) is held exactly.  K3's one-launch
 multi-octave form equals its per-octave launches and the plain version
-bit for bit.
+bit for bit, in both modes (lean, and gated with its dense solve and
+scale gate), at 4 to 13 planes and past 8 octaves (one launch per 8).
 """
 
 import dataclasses
@@ -110,6 +111,74 @@ def test_detect_octaves_launch_is_exact(dev, shape, octaves):
             assert torch.equal(a, b2)
         n_cand += int((rp > 0).sum())
     assert n_cand > 0
+
+
+def _noise(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("shape,up", [((576, 720), False), ((960, 1280), True)])
+@pytest.mark.parametrize("lowest_scale", [0.0, 1.0])
+def test_detect_gated_mode_equals_plain(dev, shape, up, lowest_scale):
+    """K3's gated mode at the bench and up-scale shapes, octave o gated
+    at lowest_scale / 2**o as the frontend runs it (and at gate 0 with
+    lean=False): one launch, equal to the plain version bit for bit."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops.detect import detect_maps_octaves, detect_maps_plain
+    from sfm_tpu_torch.sift import frontend, pyramid
+
+    cfg = SiftConfig(up_scale=up, thresh=2.0 if up else 1.0,
+                     init_blur=1.0 if up else 1.5, lowest_scale=lowest_scale)
+    bases = pyramid.base_chain(_noise(shape, 9, dev), cfg)
+    taps = frontend._tap_banks(cfg)
+    gates = [lowest_scale / 2 ** o for o in range(cfg.num_octaves)]
+    _cuda.reset_launches()
+    multi = detect_maps_octaves(bases, taps, cfg.thresh, cfg.edge_limit, gates,
+                                lean=False)
+    assert _cuda.LAUNCHES["detect_maps"] == 1
+    n_cand = 0
+    for (rk, ak), b, t, g in zip(multi, bases, taps, gates):
+        rp, ap = detect_maps_plain(b, t, cfg.thresh, cfg.edge_limit, g, lean=False)
+        assert tuple(ak.shape) == (6, *b.shape)
+        assert torch.equal(rk, rp) and torch.equal(ak, ap)
+        n_cand += int((rp > 0).sum())
+    assert n_cand > 1000
+
+
+@pytest.mark.parametrize("num_scales,lean", [(8, True), (10, False), (10, True)])
+def test_detect_nine_octaves_and_up_to_13_planes(dev, num_scales, lean):
+    """9 octaves take two launches (8 + 1) equal to the per-octave
+    launches and the plain version bit for bit, at 11 and 13 planes."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops.detect import (detect_maps, detect_maps_octaves,
+                                          detect_maps_plain)
+    from sfm_tpu_torch.sift import pyramid
+
+    cfg = SiftConfig(num_octaves=9, num_scales=num_scales,
+                     lowest_scale=0.0 if lean else 1.0)
+    bases = pyramid.base_chain(_noise((512, 640), 11, dev), cfg)
+    assert tuple(bases[-1].shape) == (2, 2)
+    taps = [pyramid.octave_kernel_bank(cfg, o) for o in range(9)]
+    gates = [cfg.lowest_scale / 2 ** o for o in range(9)]
+    _cuda.reset_launches()
+    multi = detect_maps_octaves(bases, taps, cfg.thresh, cfg.edge_limit, gates, lean)
+    assert _cuda.LAUNCHES["detect_maps"] == 2
+    n_cand = 0
+    for (rk, ak), b, t, g in zip(multi, bases, taps, gates):
+        rs, as_ = detect_maps(b, t, cfg.thresh, cfg.edge_limit, g, lean)
+        rp, ap = detect_maps_plain(b, t, cfg.thresh, cfg.edge_limit, g, lean)
+        for x, y in ((rk, rs), (ak, as_), (rk, rp), (ak, ap)):
+            assert torch.equal(x, y)
+        n_cand += int((rp > 0).sum())
+    assert n_cand > 100
+    # 14 planes (num_scales 11) exceed the kernel's parameter table.
+    wide = SiftConfig(num_octaves=2, num_scales=11)
+    with pytest.raises(ValueError, match="13 planes"):
+        detect_maps_octaves(bases[:2], [pyramid.octave_kernel_bank(wide, o)
+                                        for o in range(2)], 1.0, 10.0)
 
 
 @pytest.mark.parametrize("n1", [1, 33, 300, 5121])

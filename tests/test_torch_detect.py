@@ -1,5 +1,5 @@
 """Parity: the port's image ops, base chain and detection (K3's plain
-version + top-k selection) against the JAX package.
+version in both modes + top-k selection) against the JAX package.
 
 The JAX side runs ``pallas_detect.detect_maps`` in interpret mode.
 Tolerances: blurs agree to f32 rounding of 0..255 intensities (1e-3
@@ -26,7 +26,7 @@ from sfm_tpu.sift import pyramid as jpyramid
 from sfm_tpu_torch import interop
 from sfm_tpu_torch.ops import image
 from sfm_tpu_torch.ops.detect import (detect_maps, detect_maps_octaves,
-                                      detect_maps_plain)
+                                      detect_maps_plain, octave_groups)
 from sfm_tpu_torch.sift import detect, frontend, pyramid
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -108,10 +108,92 @@ def test_detect_maps_plain_matches_pallas_interpret(img):
 def test_unsupported_detect_knobs_raise(img):
     base = T(img)
     taps = pyramid.octave_kernel_bank(CFG, 0)
-    for bad in (dict(select="approx"), dict(select="compact"),
-                dict(lowest_scale=1.0)):
+    for bad in (dict(select="approx"), dict(select="compact")):
         with pytest.raises(NotImplementedError):
-            detect.detect_fused(base, taps, dataclasses.replace(TCFG, **bad))
+            detect.detect_fused(base, taps, dataclasses.replace(TCFG, **bad), 1.0)
+    # The lean mode cannot apply a scale gate (pallas_detect.py:283-284).
+    with pytest.raises(ValueError, match="scale_gate"):
+        detect.detect_fused(base, taps, dataclasses.replace(
+            TCFG, lowest_scale=1.0, detect_lean=True), 1.0)
+
+
+def _gated_maps(base, taps, gate):
+    """The JAX package's non-lean K3 (interpret) and the port's plain
+    gated version on the same base."""
+    rj, aj = jdetect_maps(
+        jnp.asarray(base), taps=tuple(tuple(float(v) for v in r) for r in taps),
+        n_scales=CFG.num_scales, thresh=float(CFG.thresh),
+        edge_limit=float(CFG.edge_limit), scale_gate=gate, interpret=True,
+        lean=False)
+    rt, at = detect_maps_plain(T(base), taps, CFG.thresh, CFG.edge_limit,
+                               scale_gate=gate, lean=False)
+    return np.array(rj), np.array(aj), rt.numpy(), at.numpy()
+
+
+@pytest.mark.parametrize("gate", [0.0, 1.0, 1.2])
+def test_detect_maps_gated_plain_matches_pallas_interpret(img, gate):
+    """K3's gated (non-lean) mode: resp and the 6 refined maps (s, pdx,
+    pdy, pds, sharpness, edge), the scale gate applied densely (1.0 is
+    the frontend's octave-0 gate at lowest_scale=1.0; 1.2 bites here).
+
+    Tolerances: resp, s, sharpness and edge as the lean maps (rtol 1e-3,
+    atol 1e-4).  The offsets solve the 3x3 Hessian system, which scales
+    the DoG values' ~2e-5 rounding (0..255 blur sums in another order)
+    by 1/|Hessian| ~ 10: they are held at rtol 1e-3, atol 1e-3, and a
+    pixel where the two sides take the other branch of the ``off > 0.5``
+    fallback (a decision within rounding of its threshold, like a
+    candidate flip) counts against the same flip budget max(2, 1%)."""
+    base = pyramid.base_chain(T(img), TCFG)[0].numpy()
+    taps = pyramid.octave_kernel_bank(CFG, 0)
+    rj, aj, rt, at = _gated_maps(base, taps, gate)
+    assert aj.shape == at.shape == (6, *base.shape)
+    cand_j, cand_t = rj > 0, rt > 0
+    n = max(cand_j.sum(), 1)
+    assert cand_j.sum() > 50
+    both = cand_j & cand_t & (aj[0] == at[0])
+    for q in (0, 4, 5):   # s, sharpness, edge
+        np.testing.assert_allclose(at[q][both], aj[q][both], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(rt[both], rj[both], rtol=1e-3, atol=1e-4)
+    off_ok = np.isclose(at[1:4], aj[1:4], rtol=1e-3, atol=1e-3).all(0)
+    assert (cand_j != cand_t).sum() + (both & ~off_ok).sum() <= max(2, 0.01 * n)
+    # Every kept pixel passes the gate: exp2((s + pds) / S) >= gate.
+    scale = np.exp2((at[0] + at[3]) / CFG.num_scales)
+    assert (scale[cand_t] >= gate * (1 - 1e-6)).all()
+    # The gated maps are the lean coefficients' refinement, bit for bit,
+    # wherever both modes keep the same scale.
+    rl, al = detect_maps_plain(T(base), taps, CFG.thresh, CFG.edge_limit, lean=True)
+    same = cand_t & (rl.numpy() > 0) & (al[0].numpy() == at[0])
+    assert same.sum() > 0.9 * cand_t.sum()
+    for a, b in zip(at[1:], detect.refine_from_coeffs(*al[1:])):
+        np.testing.assert_array_equal(a[same], b.numpy()[same])
+    if gate > 1.0:
+        assert cand_t.sum() < (rl.numpy() > 0).sum()   # the gate bites
+    # The dispatching wrapper takes the plain version for CPU tensors.
+    r2, a2 = detect_maps(T(base), taps, CFG.thresh, CFG.edge_limit, gate, False)
+    np.testing.assert_array_equal(a2.numpy(), at)
+
+
+def test_select_from_maps_six_map_layout_matches_jax(img):
+    """The gated mode's 6 maps through both packages' selection: the
+    same maps give the same detections."""
+    base = pyramid.base_chain(T(img), TCFG)[0].numpy()
+    taps = pyramid.octave_kernel_bank(CFG, 0)
+    rj, aj, _, _ = _gated_maps(base, taps, 1.0)
+    dj = jdetect.select_from_maps(jnp.asarray(rj), jnp.asarray(aj), CFG)
+    dt = detect.select_from_maps(T(rj), T(aj), TCFG)
+    vj, vt = np.array(dj.valid), dt.valid.numpy()
+    assert vj.sum() > 50
+    np.testing.assert_array_equal(vt, vj)
+    for f in ("x", "y", "scale", "sharpness", "edgeness"):
+        np.testing.assert_allclose(getattr(dt, f).numpy()[vt],
+                                   np.array(getattr(dj, f))[vj], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,groups", [
+    (5, [(0, 5)]), (8, [(0, 8)]), (9, [(0, 8), (8, 9)]),
+    (17, [(0, 8), (8, 16), (16, 17)])])
+def test_octave_groups_are_launches_of_at_most_8(n, groups):
+    assert octave_groups(n) == groups
 
 
 def test_detect_maps_octaves_cpu_route_is_per_octave_plain(img):
@@ -126,11 +208,14 @@ def test_detect_maps_octaves_cpu_route_is_per_octave_plain(img):
         detect_maps_octaves(bases, taps[:-1], CFG.thresh, CFG.edge_limit)
 
 
-def test_detect_stage_matches_jax(img):
+@pytest.mark.parametrize("lowest_scale", [0.0, 1.0])
+def test_detect_stage_matches_jax(img, lowest_scale):
     """The port's detect stage (base chain, all octaves' maps, per-octave
-    top-k, atlas) against the JAX package's Pallas route (interpret)."""
+    top-k, atlas) against the JAX package's Pallas route (interpret);
+    with ``lowest_scale`` > 0 both run K3's gated mode, octave o gated at
+    ``lowest_scale / 2**o``."""
     jcfg = dataclasses.replace(CFG, use_pallas=True, fused_detect=True,
-                               pyramid_pallas=True)
+                               pyramid_pallas=True, lowest_scale=lowest_scale)
     atlas_j, dets_j = jfrontend._detect_stage(jnp.asarray(img), jcfg)
     atlas_t, dets_t = frontend.detect_stage(T(img), interop.config_to_torch(jcfg))
     np.testing.assert_allclose(atlas_t.numpy(), np.array(atlas_j), atol=1e-3)
