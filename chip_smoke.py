@@ -11,13 +11,16 @@ Phases, each of which fails the run on any error:
 2. build: compiles the hand-written kernels (``sfm_tpu_torch/csrc``)
    with nvcc for sm_90a and loads them;
 3. kernels at the bench path's shapes: each kernel against its plain
-   PyTorch version on the same card tensors (K1 on a 576 x 720 image,
-   K2 on its 4 octave descents plus an odd 575 x 719 image, K3 on the 5
+   PyTorch version on the same card tensors (the base chain, K1 + K2 in
+   one launch, on a 576 x 720 image's 5 levels, on its 9 levels and on
+   an odd 575 x 719 image, bit for bit, and the standalone K1 and K2 on
+   them; K3 on the 5
    octave bases in one launch, which must equal its per-octave launches
    bit for bit, K3's gated mode (``lowest_scale > 0``) at the gates of
-   ``lowest_scale=1.0`` and at gate 0, and K3 on 9 octaves at 11
-   planes, whose two launches must equal the per-octave ones, K4, K8
-   and K9 on the 2,560 capped slots, K9 also
+   ``lowest_scale=1.0`` and at gate 0, K3 on 9 octaves at 11
+   planes, whose two launches must equal the per-octave ones, and K3 at
+   14 and 19 planes (its run-time-plane route) in both modes, bit for
+   bit; K4, K8 and K9 on the 2,560 capped slots, K9 also
    against K4's own output, K5 on their duplicate subset and, at K4's
    own orientations, against K4's descriptors bit for bit, K6 at
    5,120 x 5,120 x 128), with CUDA-event times for both (and the
@@ -39,8 +42,8 @@ Phases, each of which fails the run on any error:
    gated against the JAX package's features, candidates and H-fit on
    the same pair and against the pair's exact homography.  Then every
    kernel against its plain version on that run's inputs, at its shapes
-   (K7 on the two 960 x 1280 images, K1 on the 1920 x 2560 base, K2 on
-   its 4 descents, K3 in both modes on its 5 octave bases, K4, K8 and K9 on the
+   (K7 on the two 960 x 1280 images, the base chain on the 1920 x 2560
+   base's 5 levels, K3 in both modes on its 5 octave bases, K4, K8 and K9 on the
    11,776 capped slots of the 4,200 x 2,560 atlas, K5 on their
    duplicates, K6 on the run's own 23,552 x 23,552 x 128 descriptor
    sets), with the tolerances of phase 3.  Then the same path with
@@ -72,8 +75,9 @@ Phases, each of which fails the run on any error:
 
 Each of the main paths (phases 4 to 8) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
-it goes through, K3 exactly once per image and 8 octaves it extracts,
-and together they launch all nine.  The last lines of
+it goes through, the base chain exactly once per image and K3 once per
+image and 8 octaves it extracts, and together they launch all eight
+(K1 and K2 are one kernel).  The last lines of
 standard output are the kernels' JSON record (each kernel's
 ``launches`` summed over those paths, its ``max_abs_err`` the largest
 of phases 3, 5 and 6, its times and bound phase 3's, or phase 5's for
@@ -183,16 +187,19 @@ def k3_launches(images: int, octaves: int = 5) -> int:
     return images * -(-octaves // 8)
 
 
-# K3 launches on each main path (phases 4 to 8): 16 bench images; 2
+# Images each main path extracts (phases 4 to 8): 16 bench images; 2
 # up-scale, 1 module-API, 2 window and 2 gated images; the CLI's 16
 # reconstruct images, then 3 sift runs of 2 images, the last with 9
-# octaves.
+# octaves.  The base chain launches once per image, K3 once per image
+# and 8 octaves.
+PATH_CHAIN = {"bench": 16, "upscale": 2, "module_api": 1, "upscale_window": 2,
+              "upscale_lowest": 2, "cli": 16 + 4 + 2}
 PATH_K3 = {"bench": k3_launches(16), "upscale": k3_launches(2),
            "module_api": k3_launches(1), "upscale_window": k3_launches(2),
            "upscale_lowest": k3_launches(2),
            "cli": k3_launches(16) + k3_launches(4) + k3_launches(2, 9)}
 # Kernels each main path must launch (phases 4 to 8).
-_BASE = {"blur9", "scale_down", "detect_maps", "descriptor_sample"}
+_BASE = {"base_chain", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
     "bench": _BASE | {"fused_orient_descriptor", "match_top2"},
     "upscale": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
@@ -335,8 +342,8 @@ def upscale_config():
 
 
 KERNEL_SOURCES = {
-    "blur9": ("sfm_tpu_torch/csrc/pyramid.cu", "sfm_tpu/ops/pallas_pyramid.py:147"),
-    "scale_down": ("sfm_tpu_torch/csrc/pyramid.cu", "sfm_tpu/ops/pallas_pyramid.py:272"),
+    "base_chain": ("sfm_tpu_torch/csrc/pyramid.cu",
+                   "sfm_tpu/ops/pallas_pyramid.py:147 and :272"),
     "scale_up": ("sfm_tpu_torch/csrc/pyramid.cu", "sfm_tpu/ops/pallas_pyramid.py:241"),
     "detect_maps": ("sfm_tpu_torch/csrc/detect.cu", "sfm_tpu/ops/pallas_detect.py:259"),
     "fused_orient_descriptor": ("sfm_tpu_torch/csrc/sample.cu",
@@ -351,11 +358,14 @@ KERNEL_SOURCES = {
 
 
 def check_path_launches(path, launches, gates):
-    """Every kernel the path goes through launched in its run, K3 once
-    per image and 8 octaves."""
+    """Every kernel the path goes through launched in its run, the base
+    chain once per image, K3 once per image and 8 octaves."""
     for name in sorted(PATH_KERNELS[path]):
         gates.check(launches[name] > 0, f"kernel {name} was not launched on the "
                     f"{path} path")
+    gates.check(launches["base_chain"] == PATH_CHAIN[path],
+                f"the base chain launched {launches['base_chain']} times on the "
+                f"{path} path, not {PATH_CHAIN[path]}")
     gates.check(launches["detect_maps"] == PATH_K3[path],
                 f"K3 launched {launches['detect_maps']} times on the {path} path, "
                 f"not {PATH_K3[path]}")
@@ -451,8 +461,8 @@ def hold_k3_nine_octaves(img, gates):
 
 def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     """Every kernel of a main path against its plain version on the
-    card, at the shapes that path gives it: K7 (with ``up_scale``), K1
-    and K2 on img1's base chain, K3 on its octave bases, K4, K8 and K9
+    card, at the shapes that path gives it: K7 (with ``up_scale``), the
+    base chain (K1 + K2) on img1, K3 on its octave bases, K4, K8 and K9
     on its capped sample slots (K9, and K5 at K4's orientations, also
     against K4's output), K5 on their duplicate subset, and K6 on the
     descriptor sets ``s1`` x
@@ -467,8 +477,8 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
 
     from sfm_tpu_torch.ops import compact, detect, match, sample
     from sfm_tpu_torch.ops import pyramid as pyr
-    from sfm_tpu_torch.ops.image import gaussian_kernel
     from sfm_tpu_torch.sift import describe, frontend, pyramid
+    from sfm_tpu_torch.utils.precision import f32_precision
 
     rec = {}
 
@@ -478,7 +488,7 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     def err(a, b):
         return float((a - b).abs().max())
 
-    # K7 -> K1 -> 4x K2: the base chain.
+    # K7, then the base chain.
     base0 = img1
     if sc.up_scale:
         base0 = pyr.scale_up(img1)
@@ -493,48 +503,37 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
             4 * (n_in + 4 * n_in), 8 * n_in,
             lib_fn=lambda: F.interpolate(img1[None, None], scale_factor=2,
                                          mode="bilinear", align_corners=False))
-    sigma = max(sc.init_blur, 1e-3)
-    lp = gaussian_kernel(sc.lowpass_radius, sigma * sigma)
-    sd = gaussian_kernel(2, 0.5)
-    chain = [pyr.blur9(base0, lp)]
-    e1 = err(chain[0], pyr.blur9_plain(base0, lp))
-    e2 = 0.0
-    for _ in range(sc.num_octaves - 1):
-        chain.append(pyr.scale_down(chain[-1], sd))
-        e2 = max(e2, err(chain[-1], pyr.scale_down_plain(chain[-2], sd)))
+    # K1 + K2: the base chain in one launch, bit for bit the plain chain.
+    lp, sd = pyramid.chain_taps(sc.lowpass_radius, sc.init_blur)
+    L = sc.num_octaves
+    chain, n_diff, e12 = hold_chain(base0, lp, sd, L, gates, where)
     H, W = base0.shape
     shapes = [tuple(b.shape) for b in chain]
-    gates.check(shapes == [(H >> o, W >> o) for o in range(sc.num_octaves)],
-                f"{where}: K2 octave shapes {shapes}")
-    gates.check(e1 <= 1e-4, f"{where}: K1 max err {e1}")
-    gates.check(e2 <= 1e-4, f"{where}: K2 max err {e2}")
-
-    def descend(fn):
-        b = chain[0]
-        for _ in range(sc.num_octaves - 1):
-            b = fn(b, sd)
-        return b
-
     conv1, conv2 = _conv(lp, 1, base0.device), _conv(sd, 2, base0.device)
 
-    def descend_conv():
-        b = chain[0][None, None]
-        for _ in range(sc.num_octaves - 1):
+    def chain_conv():
+        b = conv1(base0[None, None])
+        for _ in range(L - 1):
             b = conv2(b)
         return b
 
-    add("blur9", e1, lambda: pyr.blur9(base0, lp), lambda: pyr.blur9_plain(base0, lp),
-        f"{H}x{W} f32, {lp.size} taps", 8 * H * W, 4 * lp.size * H * W,
-        lib_fn=lambda: conv1(base0[None, None]))
-    # Per descent [h, w] -> [h/2, w/2]: the 5 vertical taps on the kept
-    # rows at full width, then the 5 horizontal taps on the kept columns.
-    desc_in = [(h, w) for h, w in shapes[:-1]]
-    add("scale_down", e2, lambda: descend(pyr.scale_down),
-        lambda: descend(pyr.scale_down_plain),
-        f"the {sc.num_octaves - 1} descents {shapes} (one image)",
-        sum(4 * (h * w + (h // 2) * (w // 2)) for h, w in desc_in),
-        sum(10 * (h // 2) * w + 10 * (h // 2) * (w // 2) for h, w in desc_in),
-        lib_fn=descend_conv)
+    # Bytes: the source read once, every level written once.  Operations:
+    # K1's column and row passes (a multiply and an add per tap), then
+    # per descent [h, w] -> [h/2, w/2] the 5 vertical taps on the kept
+    # rows at full width and the 5 horizontal taps on the kept columns.
+    desc_in = shapes[:-1]
+    add("base_chain", e12,
+        lambda: pyr.base_chain(base0, lp, sd, L),
+        lambda: pyr.base_chain_plain(base0, lp, sd, L),
+        f"{H}x{W} f32, {len(lp)} prefilter taps, {L} levels {shapes} (one image)",
+        4 * (H * W + sum(h * w for h, w in shapes)),
+        4 * len(lp) * H * W
+        + sum(10 * (h // 2) * w + 10 * (h // 2) * (w // 2) for h, w in desc_in))
+    rec["base_chain"]["values_differing"] = n_diff
+    # No single PyTorch call computes the chain (library_ms stays null):
+    # its yardstick is the composed Conv2d 9x9 and L - 1 strided 5x5.
+    with f32_precision():
+        rec["base_chain"]["composed_conv_ms"] = cuda_ms(chain_conv)
 
     # K3 on the octave bases: one launch for all of them, as the path
     # runs it, equal bit for bit to one launch per octave.
@@ -701,8 +700,8 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     del ab, bb
     torch.cuda.synchronize()
     e7_txt = f"K7 {rec['scale_up']['max_abs_err']:.3g}, " if sc.up_scale else ""
-    log(f"{where}, kernels against their plain versions: {e7_txt}K1 {H}x{W} "
-        f"{e1:.3g}; K2 {shapes} {e2:.3g} (expected 0, tolerance 1e-4); K3 "
+    log(f"{where}, kernels against their plain versions: {e7_txt}base chain "
+        f"{shapes}: {n_diff} values differ (expected 0); K3 "
         f"candidates {n_cand}, mismatched pixels {mism}, max |err| {e3:.3g} "
         f"(tolerance <= max(2, 0.1%), 1e-4), one launch vs per octave "
         f"{per_octave_diff} values differ (expected 0); K3 gated vs plain at "
@@ -720,21 +719,105 @@ def hold_kernels(img1, img2, sc, gates, where, s1=None, s2=None):
     return rec
 
 
-def check_odd_scale_down(img, gates):
-    """K2 on an odd-sized image: [H, W] -> [H//2, W//2], equal to its
-    plain version."""
+def hold_chain(img, lp, sd, levels, gates, where):
+    """The base chain (one launch) against the plain chain: the level
+    shapes ``[H >> o, W >> o]`` and 0 values differing; the standalone
+    K1 and K2 (the kernel's one-phase cases) on its levels too.
+    Returns (the chain's levels, values differing, max |err|)."""
+    from sfm_tpu_torch.ops import _cuda
     from sfm_tpu_torch.ops import pyramid as pyr
-    from sfm_tpu_torch.ops.image import gaussian_kernel
 
-    sd = gaussian_kernel(2, 0.5)
+    n0 = _cuda.LAUNCHES["base_chain"]
+    chain = pyr.base_chain(img, lp, sd, levels)
+    launches = _cuda.LAUNCHES["base_chain"] - n0
+    ref = pyr.base_chain_plain(img, lp, sd, levels)
+    H, W = img.shape
+    shapes = [tuple(b.shape) for b in chain]
+    gates.check(shapes == [(H >> o, W >> o) for o in range(levels)],
+                f"{where}: base chain shapes {shapes}")
+    gates.check(launches == 1, f"{where}: base chain took {launches} launches")
+    pairs = list(zip(chain, ref)) + [(pyr.blur9(img, lp), ref[0])] + [
+        (pyr.scale_down(a, sd), b) for a, b in zip(chain, chain[1:])]
+    n_diff = sum(int((a != b).sum()) for a, b in pairs)
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    gates.check(n_diff == 0, f"{where}: the base chain differs from its plain "
+                f"version in {n_diff} values (max |err| {err})")
+    return chain, n_diff, err
+
+
+def check_odd_scale_down(img, gates):
+    """The base chain on the bench image cut to an odd 575 x 719 (5
+    levels: [H//2**o, W//2**o], the floor at every step) and on its 9
+    levels (down to 2 x 2), bit for bit the plain chain; the standalone
+    K2 on the odd image too.  Returns {case: values differing}."""
+    from sfm_tpu_torch.ops import pyramid as pyr
+    from sfm_tpu_torch.sift import pyramid
+
+    lp, sd = pyramid.chain_taps(4, 1.5)
     odd = img[:-1, :-1].contiguous()
     k = pyr.scale_down(odd, sd)
-    e = float((k - pyr.scale_down_plain(odd, sd)).abs().max())
-    log(f"K2 on odd {tuple(odd.shape)} -> {tuple(k.shape)}, max |err| {e:.3g}")
     gates.check(tuple(k.shape) == (odd.shape[0] // 2, odd.shape[1] // 2),
                 f"K2: odd shape {tuple(k.shape)}")
-    gates.check(e <= 1e-4, f"K2: odd max err {e}")
-    return e
+    out = {"scale_down_odd": int((k != pyr.scale_down_plain(odd, sd)).sum()),
+           "chain_odd_5": hold_chain(odd, lp, sd, 5, gates, "odd 575x719")[1],
+           "chain_9_levels": hold_chain(img, lp, sd, 9, gates, "9 levels")[1]}
+    gates.check(out["scale_down_odd"] == 0,
+                f"K2 on odd {tuple(odd.shape)}: {out['scale_down_odd']} values differ")
+    log(f"base chain on odd {tuple(odd.shape)} (5 levels) and on "
+        f"{tuple(img.shape)} (9 levels), K2 alone on the odd image: values "
+        f"differing {out} (expected 0)")
+    return out
+
+
+def hold_k3_planes(img, gates):
+    """K3 past 13 planes (its run-time-plane route): the 5 octave bases
+    of ``img`` at 14 and 19 planes (``num_scales`` 11 and 16), lean and
+    gated (octave o at 1 / 2**o), one launch each, bit for bit the plain
+    version; with the route's ms, device ms and bound."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import _cuda, detect
+    from sfm_tpu_torch.sift import frontend, pyramid
+
+    out = {}
+    for S in (11, 16):
+        cfg = SiftConfig(num_octaves=5, num_scales=S)
+        bases = pyramid.base_chain(img, cfg)
+        taps = frontend._tap_banks(cfg)
+        n_px = sum(b.numel() for b in bases)
+        for mode, scale_gates in (("lean", [0.0] * 5),
+                                  ("gated", [1.0 / 2 ** o for o in range(5)])):
+            lean = mode == "lean"
+            n0 = _cuda.LAUNCHES["detect_maps"]
+            multi = detect.detect_maps_octaves(bases, taps, cfg.thresh,
+                                               cfg.edge_limit, scale_gates, lean)
+            launches = _cuda.LAUNCHES["detect_maps"] - n0
+            n_diff = n_cand = 0
+            for (rk, ak), b, tp, g in zip(multi, bases, taps, scale_gates):
+                rp, ap = detect.detect_maps_plain(b, tp, cfg.thresh, cfg.edge_limit,
+                                                  g, lean)
+                n_diff += int((rk != rp).sum()) + int((ak != ap).sum())
+                n_cand += int((rp > 0).sum())
+
+            def fn():
+                return detect.detect_maps_octaves(bases, taps, cfg.thresh,
+                                                  cfg.edge_limit, scale_gates, lean)
+
+            P = S + 3
+            b_ms, b_by = bound(4 * n_px * (1 + (12 if lean else 7)),
+                               n_px * (4 * P * 9 + (P - 1) + 26 * (P - 3)))
+            r = out[f"{P} planes {mode}"] = {
+                "launches": launches, "candidates": n_cand, "values_differing": n_diff,
+                "ms": cuda_ms(fn), "device_ms": device_ms(fn), "bound_ms": b_ms,
+                "bound_by": b_by}
+            gates.check(launches == 1, f"K3 at {P} planes ({mode}): {launches} launches")
+            gates.check(n_cand > 100, f"K3 at {P} planes ({mode}): {n_cand} candidates")
+            gates.check(n_diff == 0, f"K3 at {P} planes ({mode}): {n_diff} values "
+                        f"differ from plain")
+            log(f"K3 at {P} planes ({mode}) on the 5 octave bases of "
+                f"{tuple(img.shape)}: {n_cand} candidates, {n_diff} values differ "
+                f"from plain (expected 0); {r['ms']:.4f} ms, device "
+                f"{r['device_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return out
 
 
 def run_pairs(img1, img2, K, cfg, f, seeds, dev):
@@ -1311,8 +1394,9 @@ def main() -> int:
     img1 = torch.as_tensor(pair["img1"], device=dev)
     held = {"bench": hold_kernels(img1, torch.as_tensor(pair["img2"], device=dev),
                                   cfg.sift, gates, "bench path")}
-    check_odd_scale_down(img1, gates)
+    odd = check_odd_scale_down(img1, gates)
     nine = hold_k3_nine_octaves(img1, gates)
+    wide = hold_k3_planes(img1, gates)
     launches = {}
     launches["bench"], med, rows = end_to_end(pair, cfg, gates, dev, card)
     up, held["upscale"] = upscale_path(rpair, gates, dev, card)
@@ -1344,7 +1428,8 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "kernels": records, "median": med,
                    "seeds": rows, "upscale": up, "upscale_lowest_scale_1": low,
-                   "k3_nine_octaves": nine, "module_api": api,
+                   "k3_nine_octaves": nine, "k3_past_13_planes": wide,
+                   "base_chain_odd_and_9_levels": odd, "module_api": api,
                    "upscale_window": win, "cli": cli_res, "dino": dino_res,
                    "gate_failures": gates.failures}, fh, indent=1, default=float)
     if gates.failures:
@@ -1356,6 +1441,8 @@ def main() -> int:
     line = []
     for r in records:
         line.append({k: r[k] for k in keys})
+        if "composed_conv_ms" in r:   # the base chain's yardstick (several calls)
+            line[-1]["composed_conv_ms"] = r["composed_conv_ms"]
         if "gated" in r:   # K3's gated mode, at the bench and up-scale shapes
             line[-1]["gated"] = {p: {k: h["gated"][k] for k in gated_keys}
                                  for p, h in r["held_at"].items() if "gated" in h}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B times of the port's K3 (detection maps), K4 and K5 (keypoint
-sampling) and K6 (matcher) kernels for two or more checkouts of the
-repository, on one card.
+"""A/B times of the port's base chain (K1 + K2), K3 (detection maps),
+K4 and K5 (keypoint sampling) and K6 (matcher) kernels for two or more
+checkouts of the repository, on one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -10,15 +10,20 @@ Run from the repository root on a machine with an NVIDIA card:
 Each TREE is the root of a checkout (``.`` for this one); they run in
 the order given, each in a process of its own (the package has one
 name), so ``OLD NEW NEW OLD`` alternates them on the same card.  Per
-tree: the ``-Xptxas -v`` lines of its K3, K4, K5, K6 (and K9) kernels
-(registers, shared memory, spills), then CUDA-event milliseconds per
-call (mean of 20 after 3 warm-ups) and device milliseconds alone (the
-calls queued behind a spin kernel) of
+tree: the ``-Xptxas -v`` lines of its pyramid, K3, K4, K5, K6 (and K9)
+kernels (registers, shared memory, spills), then CUDA-event
+milliseconds per call (mean of 20 after 3 warm-ups) and device
+milliseconds alone (the calls queued behind a spin kernel) of
 
-- K3 on the 5 octave bases of one image: the bench path's 576 x 720
-  synthetic image and the up-scale path's 1920 x 2560 base (the 960 x
-  1280 rotation pair's first image up-scaled), however the tree
-  launches it (one launch per image, or one per octave);
+- the base chain (``sift.pyramid.base_chain``: the prefilter and 4
+  descents) of one image, the bench path's 576 x 720 synthetic image
+  and the up-scale path's 1920 x 2560 base (the 960 x 1280 rotation
+  pair's first image up-scaled), however the tree launches it (one
+  launch per image, or one per level), with a digest of its levels;
+- K3 on the 5 octave bases of the same images, however the tree
+  launches it (one launch per image, or one per octave), lean and in
+  the gated mode at ``lowest_scale=1.0``'s gates, with a digest of its
+  maps;
 - K6 ``match_top2`` on seeded unit descriptors at 5,120^2 x 128 and
   23,552^2 x 128 (bf16, all columns valid);
 - K4 on the capped sample slots of that image's ``detect_stage`` and K5
@@ -29,7 +34,7 @@ calls queued behind a spin kernel) of
   equal bit for bit as well as their times.
 
 Prints one JSON line per tree, then whether the digests agree across
-the trees, and writes the trees' records to
+the trees (and which differ), and writes the trees' records to
 ``chiprun_out/kernel_ab.json``.
 """
 
@@ -62,23 +67,40 @@ out = {"tree": os.getcwd(), "card": card_line(), "ptxas": [], "ms": {}, "digest"
 keep = False
 for line in lib.build_log.splitlines():
     if "Compiling entry function" in line:
-        keep = any(k in line for k in ("detect", "match", "fused", "descriptor"))
+        keep = any(k in line for k in ("detect", "match", "fused", "descriptor",
+                                       "chain", "blur", "decim"))
     if keep and ("entry" in line or "registers" in line or "spill" in line):
         out["ptxas"].append(line.strip())
+
+
+def digest(tensors):
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors)
+                          ).hexdigest()[:16]
+
+
 multi = getattr(detect, "detect_maps_octaves", None)
 images = {"bench": torch.as_tensor(synthetic_pair(576, 720, seed=0)["img1"], device=dev),
           "upscale": pyr.scale_up(torch.as_tensor(
               rotation_pair(960, 1280, seed=0)["img1"], device=dev))}
 for name, img in images.items():
     cfg = SiftConfig(thresh=2.0, init_blur=1.0) if name == "upscale" else SiftConfig()
-    bases = pyramid.base_chain(img, cfg)
+    chain = lambda: pyramid.base_chain(img, cfg)
+    key = f"K1+K2 {name} {tuple(img.shape)}, {cfg.num_octaves} levels"
+    out["ms"][key] = (cuda_ms(chain), device_ms(chain))
+    bases = chain()
+    out["digest"][key] = digest(bases)
     taps = [pyramid.octave_kernel_bank(cfg, o) for o in range(cfg.num_octaves)]
-    if multi is not None:
-        fn = lambda: multi(bases, taps, cfg.thresh, cfg.edge_limit)
-    else:
-        fn = lambda: [detect.detect_maps(b, t, cfg.thresh, cfg.edge_limit)
-                      for b, t in zip(bases, taps)]
-    out["ms"][f"K3 {name} {tuple(bases[0].shape)}"] = (cuda_ms(fn), device_ms(fn))
+    gates = [1.0 / 2 ** o for o in range(cfg.num_octaves)]
+    modes = {"lean": lambda: multi(bases, taps, cfg.thresh, cfg.edge_limit),
+             "gated": lambda: multi(bases, taps, cfg.thresh, cfg.edge_limit, gates,
+                                    lean=False)}
+    if multi is None:
+        modes = {"lean": lambda: [detect.detect_maps(b, t, cfg.thresh, cfg.edge_limit)
+                                  for b, t in zip(bases, taps)]}
+    for mode, fn in modes.items():
+        key = f"K3 {mode} {name} {tuple(bases[0].shape)}"
+        out["ms"][key] = (cuda_ms(fn), device_ms(fn))
+        out["digest"][key] = digest([t for r, a in fn() for t in (r, a)])
 rng = np.random.default_rng(0)
 for n in (5120, 23552):
     d = np.abs(rng.normal(size=(2 * n, 128))).astype(np.float32)
@@ -87,12 +109,6 @@ for n in (5120, 23552):
     v = torch.ones(n, dtype=torch.bool, device=dev)
     fn = lambda: match.match_top2(a, b, v)
     out["ms"][f"K6 {n}^2 x 128"] = (cuda_ms(fn), device_ms(fn))
-
-
-def digest(tensors):
-    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors)
-                          ).hexdigest()[:16]
-
 
 for name, img, sc in (("bench", synthetic_pair(576, 720, seed=0)["img1"],
                        timing.slice_config().sift),
@@ -138,8 +154,11 @@ def main() -> int:
         print(json.dumps({"tree": tree, "card": res["card"], "ms": res["ms"],
                           "digest": res["digest"]}), flush=True)
         results.append(res)
-    same = all(r["digest"] == results[0]["digest"] for r in results)
-    print(f"K4/K5 output digests equal across the trees: {same}", flush=True)
+    differ = sorted({k for r in results for k, v in r["digest"].items()
+                     if results[0]["digest"].get(k) != v})
+    print(f"output digests (base chain, K3, K4, K5) equal across the trees: "
+          f"{not differ}{'; differing: ' + ', '.join(differ) if differ else ''}",
+          flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "kernel_ab.json"), "w") as fh:
         json.dump(results, fh, indent=1)

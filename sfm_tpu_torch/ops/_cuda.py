@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> launches since the last reset, one entry per kernel wrapper.
-LAUNCHES = {"blur9": 0, "scale_down": 0, "scale_up": 0, "detect_maps": 0,
+LAUNCHES = {"base_chain": 0, "scale_up": 0, "detect_maps": 0,
             "fused_orient_descriptor": 0, "descriptor_sample": 0,
             "match_top2": 0, "orientation_histogram_sample": 0,
             "fused_orient_descriptor_win": 0}
@@ -42,17 +42,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # src, H, W, taps (host float array), n_taps, dst, stream
-    "sfm_blur": (_P, _I, _I, _P, _I, _P, _P),
-    "sfm_scale_down": (_P, _I, _I, _P, _I, _P, _P),
+    # src, H, W, prefilter taps (host floats; NULL: level 0 is src),
+    # n_pre, descent taps (host floats), n_sd, levels, offsets (host
+    # int64 per written level), dst, sync (the tile counters, int32 on
+    # the card), blocks, stream
+    "sfm_base_chain": (_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _P),
+    # out: chain-kernel blocks resident per SM
+    "sfm_base_chain_blocks_per_sm": (_P,),
+    # H, W, levels, prefilter (0/1) -> the tile counters a launch needs
+    "sfm_base_chain_sync_ints": (_I, _I, _I, _I),
     # src, H, W, dst, stream
     "sfm_scale_up": (_P, _I, _I, _P, _P),
     # n_octaves (<= 8), then per octave (host arrays): base and out
     # ([1 + C, H, W]: resp, then aux) pointers, H, W; taps [n_octaves,
-    # n_planes, 9] and scale gates [n_octaves] (host floats), n_planes,
-    # lean (1: 11 aux maps, 0: the gated mode's 6), sm_count, thresh,
-    # edge_limit, stream
-    "sfm_detect_maps": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    # n_planes, 9] (host floats, <= 13 planes) or NULL, the same taps on
+    # the card (any plane count) or NULL, scale gates [n_octaves] (host
+    # floats), n_planes, lean (1: 11 aux maps, 0: the gated mode's 6),
+    # sm_count, thresh, edge_limit, stream
+    "sfm_detect_maps": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    # out: the most planes the run-time-plane route takes on this card
+    "sfm_detect_max_planes": (_P,),
     # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, sup_off, sup,
     # d1, ori1, ori2, dup, stream
     "sfm_fused_orient_descriptor": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,

@@ -35,7 +35,12 @@ for all planes, exchanges column sums through one shared row per plane
 for the row pass, keeps the 3 latest DoG rows of its column in
 registers and reads the x +- 1 neighbours from a 3-row shared ring: two
 block barriers per row, and only the maps reach device memory.
-:func:`detect_maps` is the one-octave case of the same kernel.
+:func:`detect_maps` is the one-octave case of the same kernel.  Up to
+13 planes (``num_scales`` <= 10) the plane count is a template
+parameter; past that one route takes the plane count at run time, with
+the per-plane rows in dynamic shared memory and the taps in a buffer on
+the card (cached per tap bank), up to the planes the card's shared
+memory per block holds (:func:`max_planes`: 111 on an H100).
 
 The blur adds, the DoG differences, every coefficient and the gated
 mode's solve are rounded as separate IEEE operations in the order the
@@ -55,7 +60,8 @@ import torch.nn.functional as F
 from sfm_tpu_torch.ops import _cuda
 
 _R = 4          # blur tap radius (laplace_radius)
-_MIN_PLANES, _MAX_PLANES = 4, 13   # csrc/detect.cu kMinPlanes, kMaxPlanes
+_MIN_PLANES = 4                    # csrc/detect.cu kMinPlanes
+_MAX_BY_VALUE = 13                 # csrc/detect.cu kMaxPlanes: the templated route
 _MAX_OCTAVES = 8                   # csrc/detect.cu kMaxOctaves: per launch
 
 
@@ -200,6 +206,31 @@ def octave_groups(n_octaves: int):
             for i in range(0, n_octaves, _MAX_OCTAVES)]
 
 
+_PLANES_ON_CARD: dict = {}
+_DEVICE_TAPS: dict = {}
+
+
+def max_planes(device) -> int:
+    """The most planes the kernel takes on ``device``: what the
+    run-time-plane route's shared memory per block allows (cached)."""
+    i = torch.device(device).index
+    if i not in _PLANES_ON_CARD:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _cuda.check(_cuda.library().lib.sfm_detect_max_planes(ctypes.byref(n)),
+                        "detect_maps")
+        _PLANES_ON_CARD[i] = n.value
+    return _PLANES_ON_CARD[i]
+
+
+def _device_taps(tp: np.ndarray, dev) -> torch.Tensor:
+    """The [octaves, planes, 9] taps on the card, copied once per bank."""
+    key = (dev.index, tp.shape, tp.tobytes())
+    if key not in _DEVICE_TAPS:
+        _DEVICE_TAPS[key] = torch.tensor(tp, device=dev)
+    return _DEVICE_TAPS[key]
+
+
 def detect_maps_octaves(bases, taps, thresh: float, edge_limit: float,
                         scale_gate=0.0, lean: bool | None = None):
     """Detection maps of every octave base of an image:
@@ -226,9 +257,14 @@ def detect_maps_octaves(bases, taps, thresh: float, edge_limit: float,
         raise ValueError(f"taps must be [octaves, planes, {2 * _R + 1}], "
                          f"got {tp.shape}")
     P = tp.shape[1]
-    if not _MIN_PLANES <= P <= _MAX_PLANES:
-        raise ValueError(f"detect kernel takes {_MIN_PLANES} to {_MAX_PLANES} planes "
-                         f"(num_scales {_MIN_PLANES - 3} to {_MAX_PLANES - 3}), got {P}")
+    dev_taps = None   # up to 13 planes the taps ride in the launch arguments
+    if not _MIN_PLANES <= P <= _MAX_BY_VALUE:
+        cap = max_planes(dev)
+        if not _MIN_PLANES <= P <= cap:
+            raise ValueError(f"detect kernel takes {_MIN_PLANES} to {cap} planes "
+                             f"(num_scales {_MIN_PLANES - 3} to {cap - 3}: the "
+                             f"card's shared memory per block), got {P}")
+        dev_taps = _device_taps(tp, dev)
     for b in bases:
         if b.dim() != 2:
             raise ValueError(f"base: expected [H, W], got {tuple(b.shape)}")
@@ -249,10 +285,12 @@ def detect_maps_octaves(bases, taps, thresh: float, edge_limit: float,
                 u64(*[blk.data_ptr() for blk in blocks[lo:hi]]),
                 i32(*[h for h, _ in hw[lo:hi]]), i32(*[w for _, w in hw[lo:hi]]))
         gate = f32(*gates[lo:hi])
+        host, card = ((tp[lo:hi].ctypes.data, None) if dev_taps is None else
+                      (None, dev_taps[lo:hi].data_ptr()))
         code = _cuda.library().lib.sfm_detect_maps(
-            m, *map(ctypes.addressof, args), tp[lo:hi].ctypes.data,
-            ctypes.addressof(gate), P, int(lean), _cuda.sm_count(dev),
-            float(thresh), float(edge_limit), _cuda.stream_ptr(dev))
+            m, *map(ctypes.addressof, args), host, card, ctypes.addressof(gate), P,
+            int(lean), _cuda.sm_count(dev), float(thresh), float(edge_limit),
+            _cuda.stream_ptr(dev))
         _cuda.check(code, "detect_maps")
         _cuda.LAUNCHES["detect_maps"] += 1
     return outs

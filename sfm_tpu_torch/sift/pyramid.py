@@ -3,17 +3,18 @@
 ``octave_kernel_bank``, ``lowpass`` and ``base_chain_pallas``).
 
 The base chain always takes the JAX package's Pallas route: K7
-``scale_up`` when ``up_scale``, K1 ``blur9`` (the ``init_blur``
-prefilter), then K2 ``scale_down`` once per further octave
-(``sfm_tpu_torch/ops/pyramid.py``).  ``pyramid_pallas`` and
-``blur_matmul`` are TPU dispatch knobs: CUDA tensors always go through
-the kernels, CPU tensors through their plain versions.  Octave o has
-shape ``[H_0 // 2**o, W_0 // 2**o]`` (floor at every step), which is
-what ``frontend.atlas_layout`` assumes.
+``scale_up`` when ``up_scale``, then K1 (the ``init_blur`` prefilter)
+and ``num_octaves - 1`` K2 descents, which the port computes in one
+kernel launch per image (``sfm_tpu_torch/ops/pyramid.py:base_chain``).
+``pyramid_pallas`` and ``blur_matmul`` are TPU dispatch knobs: CUDA
+tensors always go through the kernels, CPU tensors through their plain
+versions.  Octave o has shape ``[H_0 // 2**o, W_0 // 2**o]`` (floor at
+every step), which is what ``frontend.atlas_layout`` assumes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -44,21 +45,24 @@ def octave_kernel_bank(cfg: SiftConfig, octave_index: int) -> np.ndarray:
     return np.stack(taps)
 
 
+@functools.lru_cache(maxsize=16)
+def chain_taps(lowpass_radius: int, init_blur: float) -> tuple:
+    """(prefilter taps with sigma = init_blur, the 5 descent taps) as
+    tuples of f32 values, built once per configuration."""
+    sigma = max(init_blur, 1e-3)
+    return tuple(tuple(float(t) for t in imops.gaussian_kernel(r, var))
+                 for r, var in ((lowpass_radius, sigma * sigma), (2, 0.5)))
+
+
 def lowpass(img, cfg: SiftConfig):
     """Prefilter with sigma = init_blur (K1)."""
-    sigma = max(cfg.init_blur, 1e-3)
-    return pyr.blur9(img, imops.gaussian_kernel(cfg.lowpass_radius, sigma * sigma))
+    return pyr.blur9(img, chain_taps(cfg.lowpass_radius, cfg.init_blur)[0])
 
 
 def base_chain(img, cfg: SiftConfig) -> list:
-    """Octave base images: [K7 2x upsample,] K1 prefilter, then
-    ``num_octaves - 1`` K2 blur + decimate steps."""
+    """Octave base images: [K7 2x upsample,] then the K1 prefilter and
+    ``num_octaves - 1`` K2 blur + decimate steps in one launch."""
     if cfg.up_scale:
         img = pyr.scale_up(img)
-    base = lowpass(img, cfg)
-    bases = [base]
-    sd = imops.gaussian_kernel(2, 0.5)
-    for _ in range(cfg.num_octaves - 1):
-        base = pyr.scale_down(base, sd)
-        bases.append(base)
-    return bases
+    lp, sd = chain_taps(cfg.lowpass_radius, cfg.init_blur)
+    return pyr.base_chain(img, lp, sd, cfg.num_octaves)

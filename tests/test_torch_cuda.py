@@ -5,8 +5,9 @@ JAX-importing conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: K1, K2, K7 and K3 evaluate the same IEEE roundings as
-their plain versions (1e-4); K4, K5, K8 and K9 too, except their bin
+Tolerances: K1 + K2 (the base chain, one launch) and K3 evaluate the
+same IEEE roundings as their plain versions, so they are held bit for
+bit (K7 to 1e-4); K4, K5, K8 and K9 too, except their bin
 sums, which the plain versions take with einsum (K5 to 1e-5, K8 to 1e-6
 of the largest bin, K4 and K9 to 1e-3 on >= 99% of rows); K9 must equal
 K4 exactly, and K5 at K4's own orientations K4's descriptors, each pair
@@ -16,7 +17,8 @@ agreement >= 99.9%), while its tie rule (lowest index, across column
 ranges of the split grid too) is held exactly.  K3's one-launch
 multi-octave form equals its per-octave launches and the plain version
 bit for bit, in both modes (lean, and gated with its dense solve and
-scale gate), at 4 to 13 planes and past 8 octaves (one launch per 8).
+scale gate), at 4 to 13 planes, at 14 and 19 (the run-time-plane
+route) and past 8 octaves (one launch per 8).
 """
 
 import dataclasses
@@ -44,24 +46,38 @@ def pair():
 
 @pytest.mark.parametrize("shape", [(576, 720), (575, 719), (960, 1280), (5, 3)])
 def test_pyramid_kernels_match_plain(dev, shape):
+    """The base chain (K1 + K2 in one launch) equals the plain chain bit
+    for bit at 1, 2, 5 and 9 levels where the shape has them; blur9,
+    scale_down (the chain kernel's one-phase cases) and K7 equal their
+    plain versions bit for bit too."""
     from sfm_tpu_torch.ops import _cuda, pyramid as pyr
     from sfm_tpu_torch.ops.image import gaussian_kernel
 
     rng = np.random.default_rng(4)
     img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
     lp, sd = gaussian_kernel(4, 1.0), gaussian_kernel(2, 0.5)
+    for levels in (1, 2, 5, 9):
+        if min(shape) >> (levels - 1) < 1:
+            continue
+        _cuda.reset_launches()
+        out = pyr.base_chain(img, lp, sd, levels)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["base_chain"] == 1
+        ref = pyr.base_chain_plain(img, lp, sd, levels)
+        assert [tuple(b.shape) for b in out] == [(shape[0] >> o, shape[1] >> o)
+                                                 for o in range(levels)]
+        for a, b in zip(out, ref):
+            assert a.is_contiguous() and torch.equal(a, b)
     _cuda.reset_launches()
-    out = pyr.blur9(img, lp)
-    assert float((out - pyr.blur9_plain(img, lp)).abs().max()) <= 1e-4
+    assert torch.equal(pyr.blur9(img, lp), pyr.blur9_plain(img, lp))
     down = pyr.scale_down(img, sd)
     assert tuple(down.shape) == (shape[0] // 2, shape[1] // 2)
-    assert float((down - pyr.scale_down_plain(img, sd)).abs().max()) <= 1e-4
+    assert torch.equal(down, pyr.scale_down_plain(img, sd))
     up = pyr.scale_up(img)
     assert tuple(up.shape) == (2 * shape[0], 2 * shape[1])
     assert float((up - pyr.scale_up_plain(img)).abs().max()) <= 1e-4
     torch.cuda.synchronize()
-    assert (_cuda.LAUNCHES["blur9"], _cuda.LAUNCHES["scale_down"],
-            _cuda.LAUNCHES["scale_up"]) == (1, 1, 1)
+    assert (_cuda.LAUNCHES["base_chain"], _cuda.LAUNCHES["scale_up"]) == (2, 1)
 
 
 def test_detect_kernel_matches_plain(dev, pair):
@@ -150,9 +166,11 @@ def test_detect_gated_mode_equals_plain(dev, shape, up, lowest_scale):
 @pytest.mark.parametrize("num_scales,lean", [(8, True), (10, False), (10, True)])
 def test_detect_nine_octaves_and_up_to_13_planes(dev, num_scales, lean):
     """9 octaves take two launches (8 + 1) equal to the per-octave
-    launches and the plain version bit for bit, at 11 and 13 planes."""
+    launches and the plain version bit for bit, at 11 and 13 planes; a
+    bank of more planes than the card's shared memory per block holds is
+    refused, naming that limit."""
     from sfm_tpu_torch.config import SiftConfig
-    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops import _cuda, detect
     from sfm_tpu_torch.ops.detect import (detect_maps, detect_maps_octaves,
                                           detect_maps_plain)
     from sfm_tpu_torch.sift import pyramid
@@ -174,11 +192,41 @@ def test_detect_nine_octaves_and_up_to_13_planes(dev, num_scales, lean):
             assert torch.equal(x, y)
         n_cand += int((rp > 0).sum())
     assert n_cand > 100
-    # 14 planes (num_scales 11) exceed the kernel's parameter table.
-    wide = SiftConfig(num_octaves=2, num_scales=11)
-    with pytest.raises(ValueError, match="13 planes"):
-        detect_maps_octaves(bases[:2], [pyramid.octave_kernel_bank(wide, o)
-                                        for o in range(2)], 1.0, 10.0)
+    # Past what the card's shared memory per block holds, a bank is refused.
+    wide = np.zeros((2, detect.max_planes(dev) + 1, 9), np.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        detect_maps_octaves(bases[:2], wide, 1.0, 10.0)
+
+
+@pytest.mark.parametrize("num_scales", [11, 16])
+@pytest.mark.parametrize("lean", [True, False])
+def test_detect_past_13_planes_equals_plain(dev, num_scales, lean):
+    """14 and 19 planes take the run-time-plane route: 9 octaves in two
+    launches (8 + 1), equal bit for bit to the per-octave launches and
+    to the plain version, lean and gated (octave o at 1 / 2**o)."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops.detect import (detect_maps, detect_maps_octaves,
+                                          detect_maps_plain)
+    from sfm_tpu_torch.sift import frontend, pyramid
+
+    cfg = SiftConfig(num_octaves=9, num_scales=num_scales,
+                     lowest_scale=0.0 if lean else 1.0)
+    bases = pyramid.base_chain(_noise((512, 640), 12, dev), cfg)
+    taps = frontend._tap_banks(cfg)
+    assert taps.shape[1] == num_scales + 3
+    gates = [cfg.lowest_scale / 2 ** o for o in range(9)]
+    _cuda.reset_launches()
+    multi = detect_maps_octaves(bases, taps, cfg.thresh, cfg.edge_limit, gates, lean)
+    assert _cuda.LAUNCHES["detect_maps"] == 2
+    n_cand = 0
+    for (rk, ak), b, t, g in zip(multi, bases, taps, gates):
+        rs, as_ = detect_maps(b, t, cfg.thresh, cfg.edge_limit, g, lean)
+        rp, ap = detect_maps_plain(b, t, cfg.thresh, cfg.edge_limit, g, lean)
+        for x, y in ((rk, rs), (ak, as_), (rk, rp), (ak, ap)):
+            assert torch.equal(x, y)
+        n_cand += int((rp > 0).sum())
+    assert n_cand > 100
 
 
 @pytest.mark.parametrize("n1", [1, 33, 300, 5121])

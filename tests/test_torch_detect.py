@@ -105,6 +105,36 @@ def test_detect_maps_plain_matches_pallas_interpret(img):
     assert len(pj & pt) >= 0.95 * len(pj)
 
 
+@pytest.mark.parametrize("num_scales", [11, 16])
+def test_detect_maps_plain_matches_pallas_interpret_past_13_planes(img, num_scales):
+    """K3's plain version at 14 and 19 planes (``num_scales`` 11 and 16,
+    which the CUDA kernel takes through its run-time-plane route)
+    against the JAX kernel in interpret mode, with the bars of
+    test_detect_maps_plain_matches_pallas_interpret (rtol 1e-3, atol
+    1e-4, flips within max(2, 1%)).  With more, finer planes the DoG
+    differences shrink while their f32 rounding does not, so a kept
+    pixel whose coefficients miss the bar (one of 22 at 19 planes, by
+    1.2e-4) counts against the flip budget, as the gated test counts
+    its offsets."""
+    cfg = dataclasses.replace(CFG, num_scales=num_scales)
+    base = pyramid.base_chain(T(img), interop.config_to_torch(cfg))[0].numpy()
+    taps = pyramid.octave_kernel_bank(cfg, 0)
+    assert taps.shape == (num_scales + 3, 9)
+    rj, aj = jdetect_maps(
+        jnp.asarray(base), taps=tuple(tuple(float(v) for v in r) for r in taps),
+        n_scales=num_scales, thresh=float(cfg.thresh),
+        edge_limit=float(cfg.edge_limit), scale_gate=0.0, interpret=True)
+    rt, at = detect_maps_plain(T(base), taps, cfg.thresh, cfg.edge_limit)
+    rj, aj, rt, at = np.array(rj), np.array(aj), rt.numpy(), at.numpy()
+    cand_j, cand_t = rj > 0, rt > 0
+    n = max(cand_j.sum(), 1)
+    assert cand_j.sum() > 10
+    both = cand_j & cand_t & (aj[0] == at[0])
+    ok = (np.isclose(rt, rj, rtol=1e-3, atol=1e-4)
+          & np.isclose(at, aj, rtol=1e-3, atol=1e-4).all(0))
+    assert (cand_j != cand_t).sum() + (both & ~ok).sum() <= max(2, 0.01 * n)
+
+
 def test_unsupported_detect_knobs_raise(img):
     base = T(img)
     taps = pyramid.octave_kernel_bank(CFG, 0)

@@ -61,7 +61,7 @@ def test_kernel_argument_checks_reject_cpu_tensors():
     # that guard the CUDA launch refuse anything else.
     with pytest.raises(ValueError):
         _cuda.require(torch.zeros(3), "x", torch.float32, (3,))
-    assert set(_cuda.LAUNCHES) == {"blur9", "scale_down", "scale_up",
+    assert set(_cuda.LAUNCHES) == {"base_chain", "scale_up",
                                    "detect_maps", "fused_orient_descriptor",
                                    "descriptor_sample", "match_top2",
                                    "orientation_histogram_sample",

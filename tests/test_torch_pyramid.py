@@ -1,7 +1,7 @@
 """Parity: the port's base-chain kernels' plain versions (K1 ``blur9``,
 K2 ``scale_down``, K7 ``scale_up``) and ``base_chain`` against the JAX
-package's Pallas kernels in interpret mode, and the octave shapes the
-atlas layout assumes.
+package's Pallas kernels in interpret mode, the octave shapes the atlas
+layout assumes, and the chain op's layout, CPU route and refusals.
 
 Tolerances: ``scale_up`` is bit-identical (one add chain and one exact
 scale per output on both sides); the blurs sum 9 or 5 products of
@@ -82,6 +82,67 @@ def test_base_chain_matches_pallas_base_chain(up_scale):
     out = [b.numpy()
            for b in pyramid.base_chain(T(img), interop.config_to_torch(cfg))]
     assert [b.shape for b in out] == [b.shape for b in ref]
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a, b, atol=2e-3)
+
+
+@pytest.mark.parametrize("levels", [1, 5, 9])
+@pytest.mark.parametrize("shape", [(576, 720), (575, 719)])
+def test_chain_layout_agrees_with_atlas_layout(shape, levels):
+    """Level o is [H >> o, W >> o] (the floor at every step), each on a
+    16-byte boundary of the chain's buffer, and ``atlas_layout`` puts
+    the same heights and subsamplings in the atlas."""
+    shapes, offsets, total = pyr.chain_layout(shape, levels)
+    H, W = shape
+    assert shapes == [(H >> o, W >> o) for o in range(levels)]
+    assert all(off % 4 == 0 for off in offsets)
+    assert [b - a for a, b in zip(offsets, offsets[1:])] == [
+        -(-h * w // 32) * 32 for h, w in shapes[:-1]]
+    assert total >= offsets[-1] + shapes[-1][0] * shapes[-1][1]
+    atlas_offsets, subs = frontend.atlas_layout(shape, SiftConfig(num_octaves=levels))
+    assert [b - a - 96 for a, b in zip(atlas_offsets, atlas_offsets[1:])] == [
+        h for h, _ in shapes[:-1]]
+    assert [(H // int(s), W // int(s)) for s in subs] == shapes
+    # Without the prefilter the chain writes levels 1 .. L - 1 only.
+    assert pyr.chain_layout(shape, levels, 1)[0] == shapes[1:]
+
+
+@pytest.mark.parametrize("shape", [(193, 257), (96, 130)])
+def test_base_chain_cpu_route_is_the_plain_chain(shape):
+    """The op's CPU route is K1's plain version followed by K2's, bit
+    for bit, and the sift-level chain passes it the package's taps."""
+    img = T(_image(shape, seed=3))
+    out = pyr.base_chain(img, LP, SD, 5)
+    ref = [pyr.blur9_plain(img, LP)]
+    for _ in range(4):
+        ref.append(pyr.scale_down_plain(ref[-1], SD))
+    assert [tuple(b.shape) for b in out] == pyr.chain_layout(shape, 5)[0]
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    cfg = SiftConfig(num_octaves=5, init_blur=1.5)
+    for a, b in zip(pyramid.base_chain(img, cfg), ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("taps,levels,match", [
+    (LP[:-1], 2, "odd length"),                       # even tap count
+    (tuple(jimage.gaussian_kernel(9, 4.0)), 2, "odd length"),   # 19 taps
+    (LP, 7, "no 2x decimation"),                      # 40 x 52 -> 0 x 0 at level 6
+])
+def test_base_chain_refusals(taps, levels, match):
+    img = T(_image((40, 52)))
+    with pytest.raises(ValueError, match=match):
+        pyr.base_chain(img, taps, SD, levels)
+
+
+def test_base_chain_matches_pallas_at_an_odd_size_over_six_levels():
+    cfg = SiftConfig(num_octaves=6, init_blur=1.0)
+    img = _image((193, 257), seed=5)
+    ref = [np.asarray(b) for b in
+           jpyramid.base_chain_pallas(jnp.asarray(img), cfg, interpret=True)]
+    out = [b.numpy() for b in pyramid.base_chain(T(img), interop.config_to_torch(cfg))]
+    assert [b.shape for b in out] == [b.shape for b in ref] == [
+        (193 >> o, 257 >> o) for o in range(6)]
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a, b, atol=2e-3)
 
