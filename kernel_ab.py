@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """A/B times of the port's base chain (K1 + K2), K3 (detection maps),
-K4 and K5 (keypoint sampling) and K6 (matcher) kernels for two or more
-checkouts of the repository, on one card.
+K4, K5, K8 and K9 (keypoint sampling) and K6 (matcher) kernels for two
+or more checkouts of the repository, on one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
     python3 kernel_ab.py TREE [TREE ...]
 
-Each TREE is the root of a checkout (``.`` for this one); they run in
-the order given, each in a process of its own (the package has one
-name), so ``OLD NEW NEW OLD`` alternates them on the same card.  Per
-tree: the ``-Xptxas -v`` lines of its pyramid, K3, K4, K5, K6 (and K9)
-kernels (registers, shared memory, spills), then CUDA-event
-milliseconds per call (mean of 20 after 3 warm-ups) and device
-milliseconds alone (the calls queued behind a spin kernel) of
+Each TREE is the root of a checkout (``.`` for this one).  First every
+distinct tree builds its kernels, all at once, one process each; then
+the trees run in the order given, each in a process of its own (the
+package has one name), so ``OLD NEW NEW OLD`` alternates them on the
+same card.  Per tree: the ``-Xptxas -v`` lines of its pyramid, K3, K4,
+K5, K6, K8 and K9 kernels (registers, shared memory, spills), the
+sampling kernels' resident blocks per SM where the tree reports them,
+then CUDA-event milliseconds per call (mean of 20 after 3 warm-ups) and
+device milliseconds alone (the calls queued behind a spin kernel) of
 
 - the base chain (``sift.pyramid.base_chain``: the prefilter and 4
   descents) of one image, the bench path's 576 x 720 synthetic image
@@ -26,16 +28,22 @@ milliseconds alone (the calls queued behind a spin kernel) of
   maps;
 - K6 ``match_top2`` on seeded unit descriptors at 5,120^2 x 128 and
   23,552^2 x 128 (bf16, all columns valid);
-- K4 on the capped sample slots of that image's ``detect_stage`` and K5
-  on their duplicate subset, as ``chip_smoke.py`` builds them (the bench
-  path's config on the 576 x 720 image: 2,560 slots; up_t2.0 on the
-  960 x 1280 one: 11,776), with a digest (SHA-256) of each kernel's
-  outputs there, so that one call shows whether the trees' outputs are
-  equal bit for bit as well as their times.
+- K4 and K9 on the capped sample slots of that image's ``detect_stage``
+  and K5 on their duplicate subset, as ``chip_smoke.py`` builds them
+  (the bench path's config on the 576 x 720 image: 2,560 slots; up_t2.0
+  on the 960 x 1280 one: 11,776);
+- K8 as the module API runs it on the bench image (all 5,120 detection
+  slots, compacted valid-first) and on the up-scale image's capped
+  slots; and K4, K8 and K9 on the bench slots with 0 and 1 of them live
+  (a launch's floor, and one warp's latency),
+
+with a digest (SHA-256) of each kernel's outputs there, so that one
+call shows whether the trees' outputs are equal bit for bit as well as
+their times.
 
 Prints one JSON line per tree, then whether the digests agree across
-the trees (and which differ), and writes the trees' records to
-``chiprun_out/kernel_ab.json``.
+the trees (and which differ) and whether K9's equal K4's in every tree,
+and writes the trees' records to ``chiprun_out/kernel_ab.json``.
 """
 
 from __future__ import annotations
@@ -47,8 +55,22 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+_BUILD = r'''
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+from sfm_tpu_torch.ops import _cuda
+keep, lines = False, []
+for line in _cuda.library().build_log.splitlines():
+    if "Compiling entry function" in line:
+        keep = any(k in line for k in ("detect", "match", "fused", "descriptor",
+                                       "orientation", "chain", "blur", "decim"))
+    if keep and ("entry" in line or "registers" in line or "spill" in line):
+        lines.append(line.strip())
+print(json.dumps(lines))
+'''
+
 _CHILD = r'''
-import hashlib, importlib.util, json, os, sys
+import ctypes, hashlib, importlib.util, json, os, sys
 sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "tests")]
 import numpy as np, torch
 spec = importlib.util.spec_from_file_location("ab_timing", sys.argv[1])
@@ -63,14 +85,12 @@ from synthetic_pair import rotation_pair, synthetic_pair
 
 dev = torch.device("cuda", 0)
 lib = _cuda.library()
-out = {"tree": os.getcwd(), "card": card_line(), "ptxas": [], "ms": {}, "digest": {}}
-keep = False
-for line in lib.build_log.splitlines():
-    if "Compiling entry function" in line:
-        keep = any(k in line for k in ("detect", "match", "fused", "descriptor",
-                                       "chain", "blur", "decim"))
-    if keep and ("entry" in line or "registers" in line or "spill" in line):
-        out["ptxas"].append(line.strip())
+out = {"tree": os.getcwd(), "card": card_line(), "ms": {}, "digest": {}}
+bps = getattr(lib.lib, "sfm_sample_blocks_per_sm", None)
+if bps is not None:
+    n = (ctypes.c_int * 4)()
+    _cuda.check(bps(ctypes.addressof(n)), "sfm_sample_blocks_per_sm")
+    out["blocks_per_sm"] = dict(zip(("K4", "K5", "K8", "K9"), list(n)))
 
 
 def digest(tensors):
@@ -117,14 +137,33 @@ for name, img, sc in (("bench", synthetic_pair(576, 720, seed=0)["img1"],
     atlas, dets = frontend.detect_stage(torch.as_tensor(img, device=dev), sc)
     x, y, s, v, sharp = (torch.cat([getattr(d, f) for d in dets])
                          for f in ("x", "y", "scale", "valid", "sharpness"))
+    oc = compact.compaction_order(v)   # the module API's K8 input
+    k8 = (x[oc], y[oc], s[oc], v.sum().to(torch.int32))
     order = frontend._sample_order(v, sharp, sc.sample_cap)
     x, y, s, v = x[order], y[order], s[order], v[order]
     count = v.sum().to(torch.int32)
-    fn = lambda: sample.fused_orient_descriptor(atlas, x, y, s, count)
-    d1, o1, o2, dup = fn()
-    key = f"K4 {name} {x.shape[0]} slots, {int(count)} live"
+    if name == "upscale":
+        k8 = (x, y, s, count)
+    for k, fn in (("K4", lambda: sample.fused_orient_descriptor(atlas, x, y, s, count)),
+                  ("K9", lambda: sample.fused_orient_descriptor_win(atlas, x, y, s,
+                                                                     count))):
+        key = f"{k} {name} {x.shape[0]} slots, {int(count)} live"
+        out["digest"][key] = digest(fn())
+        out["ms"][key] = (cuda_ms(fn), device_ms(fn))
+    d1, o1, o2, dup = sample.fused_orient_descriptor(atlas, x, y, s, count)
+    fn = lambda: sample.orientation_histogram_sample(atlas, *k8)
+    key = f"K8 {name} {k8[0].shape[0]} slots, {int(k8[3])} live"
+    out["digest"][key] = digest((fn(),))
     out["ms"][key] = (cuda_ms(fn), device_ms(fn))
-    out["digest"][key] = digest((d1, o1, o2, dup))
+    for live in (0, 1) if name == "bench" else ():  # a launch's floor; one warp's chain
+        c = torch.tensor(live, dtype=torch.int32, device=dev)
+        for k, n, fn in (
+                ("K4", x.shape[0], lambda: sample.fused_orient_descriptor(atlas, x, y, s, c)),
+                ("K9", x.shape[0], lambda: sample.fused_orient_descriptor_win(atlas, x, y, s,
+                                                                              c)),
+                ("K8", k8[0].shape[0], lambda: sample.orientation_histogram_sample(
+                    atlas, *k8[:3], c))):
+            out["ms"][f"{k} {name} {n} slots, {live} live"] = (cuda_ms(fn), device_ms(fn))
     v2 = dup & v
     od = compact.compaction_order(v2)
     xd, yd, sd, od2 = x[od], y[od], s[od], o2[od]
@@ -137,10 +176,30 @@ print(json.dumps(out))
 '''
 
 
+def build(trees) -> dict | None:
+    """Build every distinct tree's kernels at once, one process each;
+    returns {tree: its ptxas lines}, or None if a build failed."""
+    procs = {t: subprocess.Popen([sys.executable, "-c", _BUILD], cwd=os.path.abspath(t),
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+             for t in dict.fromkeys(trees)}
+    lines = {}
+    for tree, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            print(stdout + stderr, file=sys.stderr)
+            return None
+        lines[tree] = json.loads(stdout.strip().splitlines()[-1])
+    return lines
+
+
 def main() -> int:
     trees = sys.argv[1:] or ["."]
+    ptxas = build(trees)
+    if ptxas is None:
+        return 1
     results = []
-    for tree in trees:
+    for i, tree in enumerate(trees):
         proc = subprocess.run([sys.executable, "-c", _CHILD,
                                os.path.join(ROOT, "chip_smoke.py")],
                               cwd=os.path.abspath(tree),
@@ -149,16 +208,20 @@ def main() -> int:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode
         res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["ptxas"] = ptxas[tree] if tree not in trees[:i] else []
         for line in res["ptxas"]:
             print("  ptxas:", line)
-        print(json.dumps({"tree": tree, "card": res["card"], "ms": res["ms"],
-                          "digest": res["digest"]}), flush=True)
+        print(json.dumps({k: res[k] for k in ("card", "blocks_per_sm", "ms", "digest")
+                          if k in res} | {"tree": tree}), flush=True)
         results.append(res)
     differ = sorted({k for r in results for k, v in r["digest"].items()
                      if results[0]["digest"].get(k) != v})
-    print(f"output digests (base chain, K3, K4, K5) equal across the trees: "
+    print(f"output digests (base chain, K3, K4, K5, K8, K9) equal across the trees: "
           f"{not differ}{'; differing: ' + ', '.join(differ) if differ else ''}",
           flush=True)
+    k9_k4 = all(v == r["digest"][k.replace("K9", "K4", 1)] for r in results
+                for k, v in r["digest"].items() if k.startswith("K9"))
+    print(f"K9's digests equal K4's in every tree: {k9_k4}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "kernel_ab.json"), "w") as fh:
         json.dump(results, fh, indent=1)

@@ -1,5 +1,5 @@
 // K4 (fused orientation + descriptor), K5 (descriptor only), K8
-// (orientation histograms) and K9 (K4 with staged patches): per-keypoint
+// (orientation histograms) and K9 (K4 with staged windows): per-keypoint
 // sampling from the octave atlas.
 //
 // Replaces sfm_tpu/ops/pallas_sample.py:788 fused_orient_descriptor (as
@@ -10,35 +10,46 @@
 // Bounds and design.  A keypoint touches < 8 KB of the atlas and does
 // ~30k operations, so no kernel here is near the card's byte or operation
 // rate: what bounds them is the latency of their scattered bilinear
-// gathers and how many instructions a keypoint issues.  K4 and K5 run
-// one warp per keypoint, 4 keypoints per block, with __syncwarp only and
-// no block barrier: a dead slot's warp zeroes its row and leaves.  Lanes
-// take the 121 gradient samples and the 256 rotated descriptor samples
-// in turn; lane b sums orientation bin b in sample order; the smoothing
-// and the two-peak search run on shuffles and ballots.  The descriptor's
-// trilinear binning walks, per output, only the nonzero spatial weights
-// of its cell (a compact [17]-offset, [784]-entry (sample, weight) table
-// built from describe.WSP, in increasing sample order), where the first
-// kernels scanned all 256 samples for each of the 128 outputs: skipping
-// exact zeros in the same order leaves every sum's sequence of roundings
-// as it was, so the outputs are bit for bit those of one 128-thread
-// block per keypoint.  Their samples are gathered straight from the
-// atlas through the read-only cache, which on the card beat each warp
-// staging its 48 x 40 patch in shared memory (PERF.md).  K9 is the TPU
-// kernel's windowed-DMA idea in its GPU form: a block of 128 threads
-// owns 4 keypoints, issues cp.async copies of all 4 of their 48 x 40
-// patches into shared memory (clamped source addresses: the TPU
-// kernels' edge padding) before it consumes the first, and then runs
-// the block-level form of K4's device code on samples read from shared
-// memory, so its outputs equal K4's bit for bit.  K8 needs only the 121
-// gradient samples of a 24 x 16 patch: one warp per keypoint (4 per
-// block) stages that patch in shared memory (1.5 KB) and each lane sums
-// one bin.
-// Histograms are built without atomics (each of 32 threads sums its own
-// bin in sample order, so results are deterministic) and every rounding
-// step uses the _rn intrinsics in the order the plain PyTorch versions
-// evaluate it; only the bin sums differ from theirs, which take them
-// with einsum in a library's order.
+// gathers and how many instructions a keypoint issues.  All four run one
+// warp per keypoint with __syncwarp only and no block barrier: a dead
+// slot's warp zeroes its row and moves on.  Lanes take the 121 gradient
+// samples and the 256 rotated descriptor samples in turn; lane b sums
+// orientation bin b in sample order; the smoothing and the two-peak
+// search run on shuffles and ballots.  The descriptor's trilinear binning
+// walks, per output, only the nonzero spatial weights of its cell (a
+// compact [17]-offset, [784]-entry (sample, weight) table built from
+// describe.WSP, in increasing sample order): skipping exact zeros in the
+// same order leaves every sum's sequence of roundings as it was, so the
+// outputs are bit for bit those of the first kernels, which scanned all
+// 256 samples for each of the 128 outputs.
+//
+// K4 and K5 gather their samples straight from the atlas through the
+// read-only cache.  K9 is the TPU kernel's windowed-DMA idea in its GPU
+// form: each warp copies the support box of its keypoint's 48 x 40 patch
+// (the rows and columns its taps can reach, from (fx, fy, scale): ~26 x
+// 26 cells at the frontend's median scale) into its own 5 KB buffer in
+// shared memory with cp.async (16-byte copies from the aligned column at
+// or below the box; 4-byte copies with clamped addresses where the patch
+// crosses the atlas edge, the TPU kernels' edge padding) and runs K4's
+// warp device code on it, so its outputs equal K4's bit for bit.  A box
+// larger than the buffer (0.4% of the frontend's keypoints) is gathered
+// as K4 does.  What bounds K9 is shared memory per warp: it sets how many
+// warps an SM holds to hide the copies' and the samples' latency (28,
+// against 40 for K4; a buffer for the whole patch allowed 16, two
+// buffers to overlap a warp's next copy with its sampling 8).
+// K8 needs only the 121 gradient samples of a 24 x 16 patch: one warp per
+// keypoint stages that patch in shared memory (1.5 KB).  Its time is a few dependent memory round
+// trips plus the samples' arithmetic: the grid is about one wave.
+//
+// Histograms are built without atomics, so results are deterministic:
+// lane b adds the samples of bin b in sample order.  K8 and K9 hold four
+// samples per lane in registers; five ballots on their bins' bits give
+// lane b the mask of a round's samples in bin b, fetched by shuffles.  K4
+// walks all 121 samples from shared memory in every lane, which leaves
+// it 8 fewer registers (the ballot form cost it 2%).  Every rounding step
+// uses the _rn intrinsics in the order the plain PyTorch versions
+// evaluate it; only the bin sums differ from theirs, which take them with
+// einsum in a library's order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,17 +57,22 @@ namespace {
 
 constexpr int kDescP = 40;     // descriptor patch columns (K4, K5, K9)
 constexpr int kOriP = 16;      // orientation patch columns (K8)
-constexpr int kThreads = 128;  // K9's block: 4 warps on one keypoint at a time
-constexpr int kBins = 32;      // histogram bins: one per lane in K4 and K8
-constexpr int kWinK = 4;       // keypoints per K9 block
+constexpr int kBins = 32;      // histogram bins: one per lane
 constexpr int kOriK = 4;       // keypoints (warps) per K8 block
 constexpr int kSampleK = 4;    // keypoints (warps) per K4 and K5 block
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kBins == 32, "K4 and K8 hold histogram bin b in lane b");
+static_assert(kBins == 32, "lane b holds histogram bin b");
 constexpr double kPi = 3.141592653589793;
 constexpr float kRad = (float)(2.0 * kPi / 360.0);
 constexpr float k16Pi = (float)(16.0 / kPi);
 constexpr float k4Pi = (float)(4.0 / kPi);
+
+constexpr int kWinWarps = 4;   // warps (keypoints in flight) per K9 block
+// Floats in a K9 warp's buffer: a box at scale ~1.75 (the frontend's
+// keypoints reach 1.87; 0.4% of them have a larger box and gather it as
+// K4 does).  5 KB a warp, with its 2.3 KB of scratch, keeps 7 blocks (28
+// warps) on an SM, where a buffer for the whole patch kept 4 or 5.
+constexpr int kWinCap = 1280;
 
 struct Origin {
   int x0, y0a;
@@ -92,11 +108,12 @@ struct GlobalPatch {
   }
 };
 
-// A patch staged in shared memory, row-major [P + 8][P] (K8, K9).
-template <int P>
-struct SharedPatch {
+// A patch, or the part of it that its samples read, staged in shared
+// memory (K8, K9): patch cell (r, c) at p[r * pitch + c + off].
+struct WindowPatch {
   const float* p;
-  __device__ __forceinline__ float at(int r, int c) const { return p[r * P + c]; }
+  int pitch, off;
+  __device__ __forceinline__ float at(int r, int c) const { return p[r * pitch + c + off]; }
 };
 
 // Bilinear sample at patch-relative (px, py), clamped to the patch.
@@ -167,46 +184,6 @@ __device__ __forceinline__ void desc_sample(const Patch& pt, float fx, float fy,
   angi = (int)ai;
 }
 
-struct DescShared {
-  float grad[256];
-  float angf[256];
-  int angi[256];
-};
-
-// Raw 128-D descriptor (16 x 16 rotated samples, 4 x 4 cells x 8 bins,
-// trilinear) of one keypoint, written to out[0..127].  Called by all
-// 128 threads of a K9 block.
-template <class Patch>
-__device__ void descriptor(const Patch& pt, float fx, float fy, float scale,
-                           float ori, const float* __restrict__ w2d,
-                           const float* __restrict__ wsp, DescShared& sh,
-                           float* __restrict__ out) {
-  const int tid = threadIdx.x;
-  const float theta = __fmul_rn(ori, kRad);
-  const float ca = cosf(theta), sa = sinf(theta);
-  const float sc = __fmul_rn(0.75f, scale);
-  for (int s = tid; s < 256; s += kThreads)
-    desc_sample(pt, fx, fy, sc, ca, sa, w2d[s], s, sh.grad[s], sh.angf[s], sh.angi[s]);
-  __syncthreads();
-  const int sp = tid >> 3, a = tid & 7;
-  float acc = 0.0f;
-  for (int s = 0; s < 256; ++s) {
-    const float w = __ldg(&wsp[s * 16 + sp]);
-    if (w == 0.0f) continue;
-    const int ai = sh.angi[s];
-    const int ai2 = ai + 1 > 7 ? 0 : ai + 1;
-    float wa;
-    if (ai == a)
-      wa = __fsub_rn(1.0f, sh.angf[s]);
-    else if (ai2 == a)
-      wa = sh.angf[s];
-    else
-      continue;
-    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(sh.grad[s], wa), w));
-  }
-  out[tid] = acc;
-}
-
 // Parabolic peak at bin i of the smoothed histogram, from hs[i] and its
 // two circular neighbours; in degrees.
 __device__ float peak_angle(float v0, float vp, float vm, int i) {
@@ -217,87 +194,73 @@ __device__ float peak_angle(float v0, float vp, float vm, int i) {
   return __fmul_rn(11.25f, peak);
 }
 
-__device__ float peak_angle(const float* hs, int i) {
-  return peak_angle(hs[i], hs[(i + 1) % kBins], hs[(i + kBins - 1) % kBins], i);
+// ---- Orientation histograms (K4, K8, K9) ----------------------------------
+
+// Lane b's running sum of bin b over one round of 32 samples (lane L
+// holds a sample's weighted magnitude g and its bin, or bin -1 for no
+// sample): the round's samples of bin b are added in lane order.  Five
+// ballots on the bins' bits give lane b the mask of its samples; they
+// are fetched two at a time by shuffles.
+__device__ __forceinline__ float add_round(float acc, float g, int bin) {
+  const int lane = threadIdx.x & 31;
+  unsigned m = __ballot_sync(kFull, (unsigned)bin < (unsigned)kBins);
+#pragma unroll
+  for (int bit = 0; bit < 5; ++bit) {
+    const unsigned set = __ballot_sync(kFull, (bin >> bit) & 1);
+    m &= ((lane >> bit) & 1) ? set : ~set;
+  }
+  for (int n = (int)__reduce_max_sync(kFull, (unsigned)__popc(m)); n > 0; n -= 2) {
+    const bool h0 = m != 0;
+    const int l0 = h0 ? __ffs((int)m) - 1 : lane;
+    m &= m - 1;
+    const bool h1 = m != 0;
+    const int l1 = h1 ? __ffs((int)m) - 1 : lane;
+    m &= m - 1;
+    const float v0 = __shfl_sync(kFull, g, l0);
+    const float v1 = __shfl_sync(kFull, g, l1);
+    if (h0) acc = __fadd_rn(acc, v0);
+    if (h1) acc = __fadd_rn(acc, v1);
+  }
+  return acc;
 }
 
-struct FusedShared {
-  float gw[121];
-  int bin[121];
-  float h[kBins];
-  float hs[kBins];
-  float ori;
-  DescShared desc;
-};
-
-// K9's function for one live keypoint: histogram, smoothing, two peaks,
-// dup flag, and the descriptor at peak 1.  Called by all 128 threads.
-template <class Patch>
-__device__ void fused_one(const Patch& pt, float fx, float fy, float scale,
-                          const float* __restrict__ w2d,
-                          const float* __restrict__ wsp, FusedShared& sh,
-                          float* __restrict__ d1, float* __restrict__ ori1,
-                          float* __restrict__ ori2, uint8_t* __restrict__ dup) {
-  const int tid = threadIdx.x;
-  if (tid < 121) orient_sample<kDescP>(pt, fx, fy, scale, tid, sh.gw[tid], sh.bin[tid]);
-  __syncthreads();
-  if (tid < kBins) {  // each thread sums its own bin, in sample order
-    float acc = 0.0f;
-    for (int s = 0; s < 121; ++s)
-      if (sh.bin[s] == tid) acc = __fadd_rn(acc, sh.gw[s]);
-    sh.h[tid] = acc;
-  }
-  __syncthreads();
-  if (tid < kBins) {  // circular [1, 4, 6, 4, 1] smoothing
-    const int i = tid;
-    const float c = __fmul_rn(6.0f, sh.h[i]);
-    const float n1 = __fmul_rn(4.0f, __fadd_rn(sh.h[(i + kBins - 1) % kBins],
-                                               sh.h[(i + 1) % kBins]));
-    sh.hs[i] = __fadd_rn(__fadd_rn(__fadd_rn(c, n1), sh.h[(i + kBins - 2) % kBins]),
-                         sh.h[(i + 2) % kBins]);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float pv[kBins];
-    float m1 = -1.0f;
-    for (int i = 0; i < kBins; ++i) {
-      const float h = sh.hs[i];
-      const bool peak = h > sh.hs[(i + kBins - 1) % kBins] && h >= sh.hs[(i + 1) % kBins];
-      pv[i] = peak ? h : 0.0f;
-      m1 = fmaxf(m1, pv[i]);
+// The raw 32-bin histogram of one keypoint, by one warp: lane b returns
+// bin b, the weighted magnitudes of the samples in bin b summed in sample
+// order, either by ballots on samples held in registers (kBallot) or by
+// every lane walking all 121 samples in the warp's [121] scratch ``gw``
+// and ``bin``.
+template <int P, bool kBallot, class Patch>
+__device__ __forceinline__ float lane_histogram(const Patch& pt, float fx, float fy,
+                                                float scale, float* gw, int* bin) {
+  const int lane = threadIdx.x & 31;
+  float h = 0.0f;
+  if constexpr (kBallot) {
+    float g[4];
+    int b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // sample 32 r + lane; 121 in all
+      g[r] = 0.0f;
+      b[r] = -1;
+      if (r < 3 || lane < 121 - 96)
+        orient_sample<P>(pt, fx, fy, scale, 32 * r + lane, g[r], b[r]);
     }
-    int i1 = 0;  // lowest bin of the maximum
-    while (i1 < kBins - 1 && pv[i1] != m1) ++i1;
-    pv[i1] = 0.0f;
-    float m2 = -1.0f;
-    for (int i = 0; i < kBins; ++i) m2 = fmaxf(m2, pv[i]);
-    int i2 = 0;
-    while (i2 < kBins - 1 && pv[i2] != m2) ++i2;
-    const float o1 = m1 > 0.0f ? peak_angle(sh.hs, i1) : 0.0f;
-    const float o2 = m2 > 0.0f ? peak_angle(sh.hs, i2) : 0.0f;
-    *ori1 = o1;
-    *ori2 = o2;
-    *dup = (m2 > __fmul_rn(0.8f, m1) && m2 > 0.0f) ? 1 : 0;
-    sh.ori = o1;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) h = add_round(h, g[r], b[r]);
+  } else {
+    for (int s = lane; s < 121; s += 32) orient_sample<P>(pt, fx, fy, scale, s, gw[s], bin[s]);
+    __syncwarp();
+    for (int s = 0; s < 121; ++s)
+      if (bin[s] == lane) h = __fadd_rn(h, gw[s]);
+    __syncwarp();
   }
-  __syncthreads();
-  descriptor(pt, fx, fy, scale, sh.ori, w2d, wsp, sh.desc, d1);
+  return h;
 }
 
-__device__ __forceinline__ void zero_fused_row(int k, float* d1, float* ori1,
-                                               float* ori2, uint8_t* dup) {
-  d1[(size_t)k * 128 + threadIdx.x] = 0.0f;
-  if (threadIdx.x == 0) {
-    ori1[k] = 0.0f;
-    ori2[k] = 0.0f;
-    dup[k] = 0;
-  }
-}
+// ---- K4, K5 and K9: one warp per keypoint ---------------------------------
 
-// ---- K4 and K5: one warp per keypoint ------------------------------------
-
-// One warp's scratch: the orientation samples, then (reusing the bytes)
-// the descriptor samples as the two products each can add to a bin.
+// One warp's scratch: the orientation samples (K4's walk), then (reusing
+// the bytes) the descriptor samples as the two products each can add to
+// a bin.
 union WarpShared {
   struct {
     float gw[121];
@@ -306,7 +269,7 @@ union WarpShared {
   struct {
     float t0[256];  // grad * (1 - angf): what sample s adds to bin angi
     float t1[256];  // grad * angf: what it adds to bin angi + 1 (mod 8)
-    int angi[256];
+    uint8_t angi[256];
   } desc;
 };
 
@@ -319,8 +282,9 @@ __device__ __forceinline__ float4* row_part(float* row, int lane) {
 // aligned).  Called by the 32 lanes of a warp.  Lane l owns outputs
 // 4l .. 4l + 3: cell l / 2, angle bins 4 (l % 2) .. + 3, each summed
 // over the cell's support entries sup[sup_off[cell] .. sup_off[cell + 1])
-// = (sample, weight bits) in increasing sample order, with the roundings
-// of ``descriptor`` above.
+// = (sample, weight bits) in increasing sample order; an entry adds
+// (grad * (1 - angf)) * w to bin angi and (grad * angf) * w to bin
+// angi + 1 (mod 8), in the plain version's order of products.
 template <class Patch>
 __device__ void warp_descriptor(const Patch& pt, float fx, float fy, float scale,
                                 float ori, const float* __restrict__ w2d,
@@ -337,7 +301,7 @@ __device__ void warp_descriptor(const Patch& pt, float fx, float fy, float scale
     desc_sample(pt, fx, fy, sc, ca, sa, __ldg(&w2d[s]), s, grad, angf, angi);
     sh.desc.t0[s] = __fmul_rn(grad, __fsub_rn(1.0f, angf));
     sh.desc.t1[s] = __fmul_rn(grad, angf);
-    sh.desc.angi[s] = angi;
+    sh.desc.angi[s] = (uint8_t)angi;
   }
   __syncwarp();
   const int cell = lane >> 1, a0 = (lane & 1) * 4;
@@ -368,8 +332,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Lowest bin of 0..30 whose lane holds pv == m, else 31 (``fused_one``'s
-// serial search).
+// Lowest bin of 0..30 whose lane holds pv == m, else 31 (the plain
+// version's serial search).
 __device__ __forceinline__ int lowest_bin_of(float pv, float m) {
   const unsigned eq = __ballot_sync(kFull, pv == m) & (kFull >> 1);
   return eq ? __ffs(eq) - 1 : kBins - 1;
@@ -383,9 +347,11 @@ __device__ __forceinline__ float warp_peak_angle(float hs, int i) {
   return peak_angle(v0, vp, vm, i);
 }
 
-// K4's function for one live keypoint, by one warp: ``fused_one``'s
-// outputs bit for bit, lane b holding bin b of the histogram.
-template <class Patch>
+// K4's function for one live keypoint, by one warp, lane b holding bin b
+// of the histogram: the histogram, its smoothing, two peaks, the dup
+// flag and the descriptor at peak 1.  K4 walks the histogram's samples
+// in the scratch, K9 sums them by ballots (kBallot).
+template <bool kBallot, class Patch>
 __device__ void warp_fused(const Patch& pt, float fx, float fy, float scale,
                            const float* __restrict__ w2d,
                            const int* __restrict__ sup_off,
@@ -393,13 +359,7 @@ __device__ void warp_fused(const Patch& pt, float fx, float fy, float scale,
                            float* __restrict__ d1, float* __restrict__ ori1,
                            float* __restrict__ ori2, uint8_t* __restrict__ dup) {
   const int lane = threadIdx.x & 31;
-  for (int s = lane; s < 121; s += 32)
-    orient_sample<kDescP>(pt, fx, fy, scale, s, sh.ori.gw[s], sh.ori.bin[s]);
-  __syncwarp();
-  float h = 0.0f;  // lane = bin, summed in sample order
-  for (int s = 0; s < 121; ++s)
-    if (sh.ori.bin[s] == lane) h = __fadd_rn(h, sh.ori.gw[s]);
-  __syncwarp();  // the scratch holds descriptor samples from here on
+  const float h = lane_histogram<kDescP, kBallot>(pt, fx, fy, scale, sh.ori.gw, sh.ori.bin);
   // Circular [1, 4, 6, 4, 1] smoothing.
   const float hm1 = __shfl_sync(kFull, h, (lane + kBins - 1) & (kBins - 1));
   const float hp1 = __shfl_sync(kFull, h, (lane + 1) & (kBins - 1));
@@ -428,6 +388,17 @@ __device__ void warp_fused(const Patch& pt, float fx, float fy, float scale,
   warp_descriptor(pt, fx, fy, scale, o1, w2d, sup_off, sup, sh, d1);
 }
 
+// A dead K4 / K9 slot's outputs, written by its warp.
+__device__ __forceinline__ void zero_slot(int k, int lane, float* d1, float* ori1,
+                                          float* ori2, uint8_t* dup) {
+  *row_part(d1 + (size_t)k * 128, lane) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (lane == 0) {
+    ori1[k] = 0.0f;
+    ori2[k] = 0.0f;
+    dup[k] = 0;
+  }
+}
+
 __global__ void __launch_bounds__(kSampleK * 32)
 fused_kernel(const float* __restrict__ atlas, int H, int W, int Hp, int Wp,
              const float* __restrict__ xs, const float* __restrict__ ys,
@@ -441,18 +412,13 @@ fused_kernel(const float* __restrict__ atlas, int H, int W, int Hp, int Wp,
   const int k = blockIdx.x * kSampleK + warp;
   if (k >= K) return;  // warp-uniform; the warps never wait on each other
   if (k >= *count_ptr) {
-    *row_part(d1 + (size_t)k * 128, lane) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (lane == 0) {
-      ori1[k] = 0.0f;
-      ori2[k] = 0.0f;
-      dup[k] = 0;
-    }
+    zero_slot(k, lane, d1, ori1, ori2, dup);
     return;
   }
   const Origin o = make_origin<kDescP>(xs[k], ys[k], Hp, Wp);
   const GlobalPatch<kDescP> pt{atlas, H, W, o.x0, o.y0a};
-  warp_fused(pt, o.fx, o.fy, scales[k], w2d, sup_off, sup, sh[warp],
-             d1 + (size_t)k * 128, ori1 + k, ori2 + k, dup + k);
+  warp_fused<false>(pt, o.fx, o.fy, scales[k], w2d, sup_off, sup, sh[warp],
+                    d1 + (size_t)k * 128, ori1 + k, ori2 + k, dup + k);
 }
 
 __global__ void __launch_bounds__(kSampleK * 32)
@@ -476,72 +442,168 @@ descriptor_kernel(const float* __restrict__ atlas, int H, int W, int Hp, int Wp,
   warp_descriptor(pt, o.fx, o.fy, scales[k], oris[k], w2d, sup_off, sup, sh[warp], row);
 }
 
-// ---- K9 ------------------------------------------------------------------
+// ---- K9: K4's warp on a staged support box ---------------------------------
+
+constexpr int kWinRows = kDescP + 8;
+// The whole patch at a 16-byte pitch: 48 rows of up to 11 aligned
+// 4-float chunks (40 columns from an unaligned start).
+constexpr int kWinPatch = kWinRows * (kDescP + 4);
+static_assert(kWinCap % 4 == 0 && kWinCap <= kWinPatch, "16-byte aligned buffers");
+// How far from (fx, fy) a keypoint's bilinear taps can reach, before the
+// one-column (row) step to the second tap: the orientation samples' 5 + 1;
+// the descriptor's 0.75 * scale * 7.5 * sqrt(2) (the rotated grid's
+// corner, 7.95495 per unit scale, rounded up) + 1 (its +-cos / +-sin
+// step).  The extra 0.01 covers the f32 roundings of the positions.
+constexpr float kOriReach = 6.01f;
+constexpr float kDescReach = 7.955f;
+constexpr float kReachPad = 1.01f;
+
+struct Box {
+  int r0, r1, c0, c1;  // patch rows and columns, inclusive
+};
+
+// [lo, hi]: the taps that ``sample`` reads for positions within r of f
+// on an n-wide axis (it clamps positions to [0, n - 1], then reads floor
+// and floor + 1, clamped).
+__device__ __forceinline__ void box_axis(float f, float r, int n, int& lo, int& hi) {
+  const float top = (float)(n - 1);
+  lo = (int)floorf(fminf(fmaxf(__fsub_rn(f, r), 0.0f), top));
+  hi = min((int)floorf(fminf(fmaxf(__fadd_rn(f, r), 0.0f), top)) + 1, n - 1);
+}
+
+// The rows and columns of the 48 x 40 patch that K4's samples of a
+// keypoint at patch-relative (fx, fy) can read (the whole patch for a
+// scale that is not finite or reaches past 64).  ops/sample.py
+// support_box is its twin.
+__device__ __forceinline__ Box support_box(float fx, float fy, float scale) {
+  const float rd = __fadd_rn(__fmul_rn(fabsf(scale), kDescReach), kReachPad);
+  const float r = rd < 64.0f ? fmaxf(rd, kOriReach) : 64.0f;
+  Box b;
+  box_axis(fx, r, kDescP, b.c0, b.c1);
+  box_axis(fy, r, kWinRows, b.r0, b.r1);
+  return b;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Wait until at most `pending` of this thread's copy groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  static_assert(kWinK == 4, "one case per possible count");
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::); break;
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A keypoint's box as staged: where its cells land, or nowhere (a box
+// larger than the buffer, which the warp gathers from the atlas).
+struct Staged {
+  WindowPatch pt;
+  bool staged;
+};
+
+// Issue the copies of a keypoint's support box into buf (one warp; each
+// lane's share of the copies) and return where its cells land.  Rows
+// are clamped to the atlas.  Where the atlas is 16-byte aligned with a
+// row length of a multiple of 4 floats and the box lies inside it,
+// 16-byte copies start from the aligned column at or below the box;
+// otherwise 4-byte copies read clamped columns (the TPU kernels' edge
+// padding).  Nothing is copied for a box larger than the buffer.
+__device__ __forceinline__ Staged stage_box(const float* __restrict__ atlas, int H, int W,
+                                            bool vec, const Origin& o, const Box& b,
+                                            float* buf, int lane) {
+  const int nr = b.r1 - b.r0 + 1;
+  const int gx0 = o.x0 + b.c0, gx1 = o.x0 + b.c1;
+  Staged st;
+  st.pt.p = buf;
+  if (vec && gx1 < W) {
+    const int xa = gx0 & ~3;
+    const int nq = ((gx1 - xa) >> 2) + 1;  // 4-float chunks per row, <= 11
+    st.pt.pitch = 4 * nq;
+    st.pt.off = o.x0 - xa - b.r0 * st.pt.pitch;
+    st.staged = nr * st.pt.pitch <= kWinCap;
+    if (st.staged)
+      for (int e = lane; e < nr * 16; e += 32) {  // 16 chunk slots per row
+        const int q = e & 15;
+        if (q < nq) {
+          const int r = e >> 4;
+          const int gy = min(o.y0a + b.r0 + r, H - 1);
+          cp_async16(buf + r * st.pt.pitch + 4 * q, atlas + (size_t)gy * W + xa + 4 * q);
+        }
+      }
+  } else {
+    const int nc = b.c1 - b.c0 + 1;
+    st.pt.pitch = nc;
+    st.pt.off = -b.c0 - b.r0 * nc;
+    st.staged = nr * nc <= kWinCap;
+    if (st.staged)
+      for (int r = 0; r < nr; ++r) {
+        const float* src = atlas + (size_t)min(o.y0a + b.r0 + r, H - 1) * W;
+        for (int c = lane; c < nc; c += 32) cp_async4(buf + r * nc + c, src + min(gx0 + c, W - 1));
+      }
   }
+  return st;
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kWinSmem = kWinWarps * (kWinCap * 4 + (int)sizeof(WarpShared));
+
+// Warp w of the grid owns slots w, w + T, w + 2T, ... (T warps in all;
+// at most ``slots`` of them), so live slots, which come first, spread
+// over every warp.  Each warp copies a slot's box, waits for its own
+// copies, samples, and only then copies its next slot's box: the warps
+// beside it on the SM hide the copy's latency.
+__global__ void __launch_bounds__(kWinWarps * 32)
 fused_win_kernel(const float* __restrict__ atlas, int H, int W, int Hp, int Wp,
                  const float* __restrict__ xs, const float* __restrict__ ys,
                  const float* __restrict__ scales, const int* __restrict__ count_ptr,
-                 int K, const float* __restrict__ w2d,
-                 const float* __restrict__ wsp, float* __restrict__ d1,
-                 float* __restrict__ ori1, float* __restrict__ ori2,
-                 uint8_t* __restrict__ dup) {
-  constexpr int kPatch = kDescP * (kDescP + 8);  // 1,920 floats
-  __shared__ __align__(16) float s_patch[kWinK][kPatch];
-  __shared__ FusedShared sh;
-  const int k0 = blockIdx.x * kWinK;
-  const int count = *count_ptr;
-  // Issue the copies of all this block's patches (one group each, empty
-  // for a dead slot) before the first one is consumed.
-  for (int j = 0; j < kWinK; ++j) {
-    const int k = k0 + j;
-    if (k < K && k < count) {
-      const Origin o = make_origin<kDescP>(xs[k], ys[k], Hp, Wp);
-      for (int e = threadIdx.x; e < kPatch; e += kThreads) {
-        const int gy = min(max(o.y0a + e / kDescP, 0), H - 1);
-        const int gx = min(max(o.x0 + e % kDescP, 0), W - 1);
-        cp_async4(&s_patch[j][e], atlas + (size_t)gy * W + gx);
-      }
-    }
-    cp_async_commit();
-  }
-  for (int j = 0; j < kWinK; ++j) {
-    const int k = k0 + j;
-    if (k >= K) break;  // block-uniform
-    cp_async_wait(kWinK - 1 - j);
-    __syncthreads();
-    if (k >= count) {
-      zero_fused_row(k, d1, ori1, ori2, dup);
+                 int K, int slots, const float* __restrict__ w2d,
+                 const int* __restrict__ sup_off, const int2* __restrict__ sup,
+                 float* __restrict__ d1, float* __restrict__ ori1,
+                 float* __restrict__ ori2, uint8_t* __restrict__ dup) {
+  extern __shared__ float4 win_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* buf = reinterpret_cast<float*>(win_smem) + warp * kWinCap;
+  WarpShared& sh = reinterpret_cast<WarpShared*>(
+      reinterpret_cast<float*>(win_smem) + kWinWarps * kWinCap)[warp];
+  const int T = gridDim.x * kWinWarps;
+  const int w = blockIdx.x * kWinWarps + warp;
+  const int live_end = min(K, *count_ptr);
+  const bool vec = (reinterpret_cast<uintptr_t>(atlas) & 15) == 0 && (W & 3) == 0;
+  for (int i = 0, k = w; i < slots && k < K; ++i, k += T) {
+    if (k >= live_end) {
+      zero_slot(k, lane, d1, ori1, ori2, dup);
       continue;
     }
     const Origin o = make_origin<kDescP>(xs[k], ys[k], Hp, Wp);
-    const SharedPatch<kDescP> pt{s_patch[j]};
-    fused_one(pt, o.fx, o.fy, scales[k], w2d, wsp, sh, d1 + (size_t)k * 128,
-              ori1 + k, ori2 + k, dup + k);
+    const float scale = scales[k];
+    const Staged st = stage_box(atlas, H, W, vec, o, support_box(o.fx, o.fy, scale), buf,
+                                lane);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();  // every lane's copies of this box have landed
+    float* row = d1 + (size_t)k * 128;
+    if (st.staged) {
+      warp_fused<true>(st.pt, o.fx, o.fy, scale, w2d, sup_off, sup, sh, row, ori1 + k,
+                       ori2 + k, dup + k);
+    } else {
+      const GlobalPatch<kDescP> pt{atlas, H, W, o.x0, o.y0a};
+      warp_fused<true>(pt, o.fx, o.fy, scale, w2d, sup_off, sup, sh, row, ori1 + k,
+                       ori2 + k, dup + k);
+    }
+    __syncwarp();  // the buffer and the scratch are free again
   }
 }
 
-// ---- K8 ------------------------------------------------------------------
+// ---- K8 --------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kOriK * 32)
 orientation_kernel(const float* __restrict__ img, int H, int W, int Hp, int Wp,
@@ -551,8 +613,6 @@ orientation_kernel(const float* __restrict__ img, int H, int W, int Hp, int Wp,
                    float* __restrict__ out) {
   constexpr int kPatch = kOriP * (kOriP + 8);  // 384 floats
   __shared__ float s_patch[kOriK][kPatch];
-  __shared__ float s_gw[kOriK][121];
-  __shared__ int s_bin[kOriK][121];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k = blockIdx.x * kOriK + warp;
   if (k >= K) return;  // warp-uniform; the warps never wait on each other
@@ -568,15 +628,24 @@ orientation_kernel(const float* __restrict__ img, int H, int W, int Hp, int Wp,
     p[e] = __ldg(&img[(size_t)gy * W + gx]);
   }
   __syncwarp();
-  const SharedPatch<kOriP> pt{p};
-  const float scale = scales[k];
-  for (int s = lane; s < 121; s += 32)
-    orient_sample<kOriP>(pt, o.fx, o.fy, scale, s, s_gw[warp][s], s_bin[warp][s]);
-  __syncwarp();
-  float acc = 0.0f;  // lane = bin, summed in sample order
-  for (int s = 0; s < 121; ++s)
-    if (s_bin[warp][s] == lane) acc = __fadd_rn(acc, s_gw[warp][s]);
-  out[(size_t)k * kBins + lane] = acc;
+  out[(size_t)k * kBins + lane] = lane_histogram<kOriP, true>(
+      WindowPatch{p, kOriP, 0}, o.fx, o.fy, scales[k], nullptr, nullptr);
+}
+
+// K9's warps resident on the whole card (device ``dev``).
+int win_resident(int dev, int* out) {
+  int sms = 0, blocks = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fused_win_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWinSmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_win_kernel,
+                                                      kWinWarps * 32, kWinSmem);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  *out = blocks * sms * kWinWarps;
+  return 0;
 }
 
 }  // namespace
@@ -596,17 +665,29 @@ extern "C" int sfm_fused_orient_descriptor(
   return (int)cudaGetLastError();
 }
 
+// K9: as many warps as the card holds at once (or one per slot, where
+// that is fewer), each walking ceil(K / warps) slots.
 extern "C" int sfm_fused_orient_descriptor_win(
     const void* atlas, int H, int W, int Hp, int Wp, const void* x,
     const void* y, const void* scale, const void* count, int K,
-    const void* w2d, const void* wsp, void* d1, void* ori1, void* ori2,
-    void* dup, void* stream) {
+    const void* w2d, const void* sup_off, const void* sup, void* d1, void* ori1,
+    void* ori2, void* dup, void* stream) {
   if (K <= 0 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (K + kWinK - 1) / kWinK;
-  fused_win_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  static int resident[64];  // by device, 0 until first asked
+  int dev = 0;
+  const cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return (int)de;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    const int e = win_resident(dev, &resident[dev]);
+    if (e != 0) return e;
+  }
+  const int slots = (K + resident[dev] - 1) / resident[dev];
+  const int blocks = ((K + slots - 1) / slots + kWinWarps - 1) / kWinWarps;
+  fused_win_kernel<<<blocks, kWinWarps * 32, kWinSmem, (cudaStream_t)stream>>>(
       (const float*)atlas, H, W, Hp, Wp, (const float*)x, (const float*)y,
-      (const float*)scale, (const int*)count, K, (const float*)w2d,
-      (const float*)wsp, (float*)d1, (float*)ori1, (float*)ori2,
+      (const float*)scale, (const int*)count, K, slots, (const float*)w2d,
+      (const int*)sup_off, (const int2*)sup, (float*)d1, (float*)ori1, (float*)ori2,
       (uint8_t*)dup);
   return (int)cudaGetLastError();
 }
@@ -636,4 +717,24 @@ extern "C" int sfm_orientation_histogram_sample(
       (const float*)img, H, W, Hp, Wp, (const float*)x, (const float*)y,
       (const float*)scale, (const int*)count, K, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the sampling kernels on the current card:
+// out[0..3] = K4, K5, K8, K9.
+extern "C" int sfm_sample_blocks_per_sm(int* out) {
+  int dev = 0, sms = 1, warps = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fused_kernel,
+                                                                kSampleK * 32, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], descriptor_kernel,
+                                                      kSampleK * 32, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], orientation_kernel,
+                                                      kOriK * 32, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int code = win_resident(dev, &warps);
+  out[3] = warps / (sms * kWinWarps);
+  return code;
 }

@@ -66,10 +66,11 @@ _SIGNATURES = {
     # d1, ori1, ori2, dup, stream
     "sfm_fused_orient_descriptor": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                     _P, _P, _P, _P, _P, _P, _P, _P),
-    # atlas, H, W, Hp, Wp, x, y, scale, count, K, w2d, wsp,
-    # d1, ori1, ori2, dup, stream
+    # the same arguments as sfm_fused_orient_descriptor
     "sfm_fused_orient_descriptor_win": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-                                        _P, _P, _P, _P, _P, _P, _P),
+                                        _P, _P, _P, _P, _P, _P, _P, _P),
+    # out: resident blocks per SM of K4, K5, K8, K9
+    "sfm_sample_blocks_per_sm": (_P,),
     # img, H, W, Hp, Wp, x, y, scale, count, K, out, stream
     "sfm_orientation_histogram_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                          _P, _P),

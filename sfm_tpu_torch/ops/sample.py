@@ -14,7 +14,7 @@ replaces ``pallas_sample.py:578 orientation_histogram_sample``: the raw
 (unsmoothed) [K, 32] histograms alone, on a 16-column patch.  K9
 ``fused_orient_descriptor_win`` replaces ``pallas_sample.py:998
 fused_orient_descriptor_win``: K4's function with each keypoint's
-patch staged in shared memory before it is sampled.  All four zero
+support box staged in shared memory before it is sampled.  All four zero
 every slot >= ``count``.
 
 The TPU kernels recast bilinear sampling as tent-matrix matmuls over a
@@ -34,19 +34,26 @@ P-column patch because the TPU has no gather unit.  The CUDA kernels
   compact support table, 36-64 entries in increasing sample order,
   instead of all 256 samples).  Skipping exact zeros in the same order
   keeps every rounding, so the outputs are bit for bit those of the
-  first design's one 128-thread block per keypoint (which K9 keeps).
-- K9: one 128-thread block per 4 keypoints first copies their four
-  48 x 40 patches (clamped to the atlas, which is the TPU kernels' edge
-  padding) into shared memory with ``cp.async``, all four before the
-  first is used, then runs the block-level form of K4's device code on
-  samples read from shared memory.  The gathers become 7.7 KB of
-  coalesced row copies per keypoint, and K9 equals K4 bit for bit.
+  first design's one 128-thread block per keypoint.
+- K9: K4's warp device code on a window staged in shared memory.  Each
+  warp copies with ``cp.async`` only the rows and columns of its
+  keypoint's 48 x 40 patch that the samples can reach
+  (:func:`support_box`: ~26 x 26 of its cells at scale 1.4, all 40
+  columns from scale ~2.4), in 16-byte copies where the atlas allows
+  (4-byte copies of clamped addresses at its edge), into a 5 KB buffer
+  of its own, and samples from there, so K9 equals K4 bit for bit.  A
+  box larger than the buffer is gathered from the atlas as K4 does.
+  The grid holds as many warps as the card does at once, each walking
+  slots k, k + warps, ...  What bounds it is the warps an SM can hold
+  (shared memory: 28, against K4's 40) to hide its latency.
 - K8: one warp per keypoint, four per block; each warp stages its
-  24 x 16 patch in shared memory (1.5 KB), takes the 121 gradient
-  samples from there, and each lane sums one bin in sample order.
+  24 x 16 patch in shared memory (1.5 KB) and takes the 121 gradient
+  samples from there, four per lane held in registers.
 
-Every kernel builds its histograms without atomics (each of 32 threads
-sums its own bin in sample order), so the results are deterministic.
+Every kernel builds its histograms without atomics, so the results are
+deterministic: lane b adds the samples of bin b in sample order (K8 and
+K9 find each round of 32 samples' bins by five ballots and fetch them
+by shuffles; K4 walks all 121 samples in every lane).
 Sampling reproduces the TPU kernels' patch geometry
 (``ops.image.patch_origin``) with the atlas edge replicated beyond its
 last row and column, which equals clamping to the atlas.  The plain
@@ -65,7 +72,7 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch.ops import _cuda
-from sfm_tpu_torch.ops.image import ORI_P, padded_dims, patch_origin
+from sfm_tpu_torch.ops.image import DESC_P, ORI_P, padded_dims, patch_origin
 from sfm_tpu_torch.sift import describe, orient
 
 
@@ -108,9 +115,43 @@ def orientation_histogram_sample_plain(img, x, y, scale, count=None):
     return torch.where(live[:, None], h, torch.zeros_like(h))
 
 
+# How far from (fx, fy) K9's bilinear taps can reach before their
+# one-step second tap (csrc/sample.cu kOriReach, kDescReach, kReachPad):
+# the orientation samples' 5 + 1; the descriptor's 0.75 * scale * 7.5 *
+# sqrt(2) (7.95495 per unit scale, rounded up) + 1; 0.01 more for the
+# f32 roundings of the positions.
+ORI_REACH = 6.01
+DESC_REACH = 7.955
+REACH_PAD = 1.01
+
+
+def support_box(fx, fy, scale):
+    """K9's staged box for keypoints at patch-relative (fx, fy) [K]
+    (``ops.image.patch_origin``): (r0, r1, c0, c1) [K] int64, the rows
+    and columns of the 48 x 40 patch (inclusive) that the samples of
+    K4's function can read, computed in f32 as the kernel computes it
+    (``support_box`` in ``csrc/sample.cu``); the whole patch where the
+    scale is not finite or reaches past 64."""
+    f32 = torch.float32
+    rd = torch.abs(scale.to(f32)) * DESC_REACH + REACH_PAD
+    r = torch.where(rd < 64.0, torch.fmax(rd, torch.tensor(ORI_REACH, dtype=f32)),
+                    torch.tensor(64.0, dtype=f32))
+
+    def axis(f, n):
+        top = torch.tensor(n - 1.0, dtype=f32)
+        zero = torch.tensor(0.0, dtype=f32)
+        lo = torch.floor(torch.fmin(torch.fmax(f.to(f32) - r, zero), top))
+        hi = torch.floor(torch.fmin(torch.fmax(f.to(f32) + r, zero), top)) + 1
+        return lo.to(torch.int64), torch.clamp(hi.to(torch.int64), max=n - 1)
+
+    r0, r1 = axis(fy, DESC_P + 8)
+    c0, c1 = axis(fx, DESC_P)
+    return r0, r1, c0, c1
+
+
 class _Tables(NamedTuple):
     w2d: torch.Tensor       # [256] f32: the descriptor's Gaussian window
-    wsp: torch.Tensor       # [256, 16] f32: spatial cell weights (K9)
+    wsp: torch.Tensor       # [256, 16] f32: spatial cell weights (sup's dense form)
     sup_off: torch.Tensor   # [17] int32: cell c's support entries start here
     sup: torch.Tensor       # [784, 2] int32: (sample, weight's f32 bits)
 
@@ -139,10 +180,9 @@ def _prep(atlas, tensors, count):
     return dev, H, W, K, count
 
 
-def _fused(name, tables, atlas, x, y, scale, count):
+def _fused(name, atlas, x, y, scale, count):
     """Launch K4 (``name`` = "fused_orient_descriptor") or K9
-    ("fused_orient_descriptor_win"), which differ in the constant
-    ``tables`` they read."""
+    ("fused_orient_descriptor_win"), which take the same arguments."""
     dev, H, W, K, count = _prep(
         atlas, (("x", x), ("y", y), ("scale", scale)), count)
     Hp, Wp = padded_dims(H, W)
@@ -152,11 +192,12 @@ def _fused(name, tables, atlas, x, y, scale, count):
     dup = torch.empty(K, dtype=torch.bool, device=dev)
     if K == 0:
         return d1, ori1, ori2, dup
+    t = _tables_on(dev)
     code = getattr(_cuda.library().lib, "sfm_" + name)(
         atlas.data_ptr(), H, W, Hp, Wp, x.data_ptr(), y.data_ptr(),
-        scale.data_ptr(), count.data_ptr(), K, *(a.data_ptr() for a in tables),
-        d1.data_ptr(), ori1.data_ptr(), ori2.data_ptr(), dup.data_ptr(),
-        _cuda.stream_ptr(dev))
+        scale.data_ptr(), count.data_ptr(), K, t.w2d.data_ptr(), t.sup_off.data_ptr(),
+        t.sup.data_ptr(), d1.data_ptr(), ori1.data_ptr(), ori2.data_ptr(),
+        dup.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(code, name)
     _cuda.LAUNCHES[name] += 1
     return d1, ori1, ori2, dup
@@ -168,19 +209,16 @@ def fused_orient_descriptor(atlas, x, y, scale, count=None):
     scalar, never read on the host)."""
     if not atlas.is_cuda:
         return fused_orient_descriptor_plain(atlas, x, y, scale, count)
-    t = _tables_on(atlas.device)
-    return _fused("fused_orient_descriptor", (t.w2d, t.sup_off, t.sup), atlas, x, y,
-                  scale, count)
+    return _fused("fused_orient_descriptor", atlas, x, y, scale, count)
 
 
 def fused_orient_descriptor_win(atlas, x, y, scale, count=None):
-    """K9: K4's function and outputs, each keypoint's 48 x 40 patch
-    staged in shared memory by ``cp.async`` before it is sampled."""
+    """K9: K4's function and outputs, each keypoint's support box
+    (:func:`support_box`) staged in shared memory by ``cp.async`` before
+    it is sampled."""
     if not atlas.is_cuda:
         return fused_orient_descriptor_plain(atlas, x, y, scale, count)
-    t = _tables_on(atlas.device)
-    return _fused("fused_orient_descriptor_win", (t.w2d, t.wsp), atlas, x, y, scale,
-                  count)
+    return _fused("fused_orient_descriptor_win", atlas, x, y, scale, count)
 
 
 def descriptor_sample(atlas, x, y, scale, ori, count=None):

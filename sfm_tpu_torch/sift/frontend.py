@@ -10,8 +10,8 @@ slots (over more than 16,384 slots: a rank-major interleave of the
 octaves), K4 samples every slot, and the second-peak duplicates are
 compacted and sampled by K5 into a fixed second half (slot i + K) —
 no re-compaction.  ``sample_window`` True, "hbm" or "vmem" samples
-through K9, which stages each keypoint's patch in shared memory and
-computes K4's function bit for bit; None, False and "blk" (the JAX
+through K9, which stages each keypoint's support box in shared memory
+and computes K4's function bit for bit; None, False and "blk" (the JAX
 package's paged-atlas form of K4) run K4.  With ``up_scale`` the image
 is upsampled 2x before the prefilter and keypoints are halved back to
 input pixels at the end.  ``lowest_scale > 0`` runs K3's gated mode
@@ -39,8 +39,10 @@ from sfm_tpu_torch.ops.sample import (descriptor_sample, fused_orient_descriptor
 from sfm_tpu_torch.sift import describe, detect as detect_mod, pyramid
 
 _GUARD = 48  # vertical guard rows between octaves (>= descriptor patch)
-# sample_window -> the fused sampling kernel: K9 stages patches in shared
-# memory, K4 gathers from the atlas; the same function.
+# sample_window -> the fused sampling kernel, the same function either
+# way: K9 runs K4's warp on each keypoint's support box, copied to
+# shared memory by cp.async (the next slot's copy overlapping this one's
+# sampling), K4 gathers from the atlas.
 _SAMPLE_WINDOWS = {None: fused_orient_descriptor, False: fused_orient_descriptor,
                    "blk": fused_orient_descriptor,
                    True: fused_orient_descriptor_win,

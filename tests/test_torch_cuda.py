@@ -381,12 +381,14 @@ def test_descriptor_kernel_at_fused_orientation_equals_fused(dev, shape):
     assert bool(d1[:198].any(dim=1).all())
 
 
+@pytest.mark.parametrize("kernel", ["K4+K5", "K8", "K9"])
 @pytest.mark.parametrize("K,count", [(1, 0), (1, 1), (13, 0), (13, 7), (13, 13),
                                      (203, 203)])
-def test_sample_kernels_ragged_slots(dev, K, count):
-    """K4 and K5 at slot counts that fill no whole block (4 warps), with
-    none, some or all live: rows >= count exactly zero, live rows equal
-    to the same keypoints' rows in a batch of 203, one launch each."""
+def test_sample_kernels_ragged_slots(dev, kernel, K, count):
+    """K4 and K5, K8, and K9 at slot counts that fill no whole block (4
+    warps), with none, some or all live: rows >= count exactly zero,
+    live rows equal to the same keypoints' rows in a batch of 203 (K9's
+    to K4's), one launch each."""
     from sfm_tpu_torch.ops import _cuda, sample
 
     rng = np.random.default_rng(8)
@@ -394,19 +396,52 @@ def test_sample_kernels_ragged_slots(dev, K, count):
                           device=dev)
     x, y, s = _border_keypoints(rng, 203, 192, 256, dev)
     o = torch.as_tensor(rng.uniform(0, 360, 203).astype(np.float32), device=dev)
-    full4 = sample.fused_orient_descriptor(img, x, y, s)
-    full5 = sample.descriptor_sample(img, x, y, s, o)
     c = torch.tensor(count, device=dev)
-    _cuda.reset_launches()
-    out4 = sample.fused_orient_descriptor(img, x[:K], y[:K], s[:K], c)
-    out5 = sample.descriptor_sample(img, x[:K], y[:K], s[:K], o[:K], c)
+    if kernel == "K4+K5":
+        full = (*sample.fused_orient_descriptor(img, x, y, s),
+                sample.descriptor_sample(img, x, y, s, o))
+        _cuda.reset_launches()
+        out = (*sample.fused_orient_descriptor(img, x[:K], y[:K], s[:K], c),
+               sample.descriptor_sample(img, x[:K], y[:K], s[:K], o[:K], c))
+        names = ("fused_orient_descriptor", "descriptor_sample")
+    elif kernel == "K8":
+        full = (sample.orientation_histogram_sample(img, x, y, s),)
+        _cuda.reset_launches()
+        out = (sample.orientation_histogram_sample(img, x[:K], y[:K], s[:K], c),)
+        names = ("orientation_histogram_sample",)
+    else:
+        full = sample.fused_orient_descriptor(img, x, y, s)
+        _cuda.reset_launches()
+        out = sample.fused_orient_descriptor_win(img, x[:K], y[:K], s[:K], c)
+        names = ("fused_orient_descriptor_win",)
     torch.cuda.synchronize()
-    assert (_cuda.LAUNCHES["fused_orient_descriptor"],
-            _cuda.LAUNCHES["descriptor_sample"]) == (1, 1)
-    for a, b in zip((*out4, out5), (*full4, full5)):
+    assert all(_cuda.LAUNCHES[n] == 1 for n in names), _cuda.LAUNCHES
+    assert sum(_cuda.LAUNCHES.values()) == len(names)
+    for a, b in zip(out, full):
         assert a.shape[0] == K
         assert torch.equal(a[:count], b[:count])
         assert not bool(a[count:].any())
+
+
+@pytest.mark.parametrize("K,lo,hi", [(203, 2.0, 6.0), (6000, 0.8, 2.0), (6000, 2.0, 6.0)])
+def test_window_kernel_equals_fused_kernel_at_large_scales_and_many_slots(dev, K, lo, hi):
+    """K9 equals K4 bit for bit where the samples clamp at the patch's
+    edges (scales 2-6: the staged box is the whole patch, and more) and
+    past the slots the card's resident warps cover at one slot each
+    (6,000 slots: two buffers, each warp walking several slots), with
+    rows >= count zero."""
+    from sfm_tpu_torch.ops import sample
+
+    rng = np.random.default_rng(9)
+    shape = (300, 412)
+    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+    x, y, _ = _border_keypoints(rng, K, *shape, dev)
+    s = torch.as_tensor(rng.uniform(lo, hi, K).astype(np.float32), device=dev)
+    count = torch.tensor(K - 37, device=dev)
+    win = sample.fused_orient_descriptor_win(img, x, y, s, count)
+    for a, b in zip(win, sample.fused_orient_descriptor(img, x, y, s, count)):
+        assert torch.equal(a, b)
+    assert bool(win[0][:K - 37].any(dim=1).all()) and not bool(win[0][K - 37:].any())
 
 
 @pytest.mark.parametrize("bf16", [False, True])

@@ -15,6 +15,7 @@ keypoints.  Slots >= count must be exactly zero.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from synthetic_pair import synthetic_pair
@@ -154,3 +155,57 @@ def test_kernel_tables_are_cached_per_device_and_packed():
     np.testing.assert_array_equal(t.sup_off.numpy(), describe.SUPPORT_OFFSETS)
     np.testing.assert_array_equal(t.wsp.numpy(), describe.WSP)
     np.testing.assert_array_equal(t.w2d.numpy(), describe.W2D)
+
+
+@pytest.mark.parametrize("case", ["interior", "patch_edges", "small_scales",
+                                  "large_scales"])
+def test_support_box_holds_every_tap_of_the_plain_version(rng, monkeypatch, case):
+    """K9 copies only ``support_box``'s rows and columns of each
+    keypoint's 48 x 40 patch: every bilinear tap that K4's function (its
+    plain version, the gather form K9 must equal) reads lies inside the
+    box, also where the patch is clamped at the image's edges and where
+    the scale reaches past the patch or so little that the orientation
+    window sets the box.  At the frontend's scales the box is well under
+    the patch."""
+    from sfm_tpu_torch.ops import image, sample
+    from sfm_tpu_torch.sift import orient
+
+    H, W, K = 150, 182, 96
+    img = synthetic_pair(H, W, seed=4)["img1"]
+    x = rng.uniform(0.5, W - 1.5, K)
+    y = rng.uniform(0.5, H - 1.5, K)
+    sc = rng.uniform(0.8, 2.0, K)
+    if case == "patch_edges":
+        x[::2] = rng.choice([0.1, 0.9, 3.5, 17.99, W - 4.2, W - 1.01, W - 0.2], K // 2)
+        y[1::2] = rng.choice([0.05, 1.5, 7.99, 19.0, H - 6.5, H - 1.2, H - 0.3], K // 2)
+    elif case == "small_scales":
+        sc = rng.uniform(0.2, 0.8, K)
+    elif case == "large_scales":
+        sc = rng.uniform(2.0, 9.0, K)
+    x, y, sc = (T(a.astype(np.float32)) for a in (x, y, sc))
+    taps = []
+    real = image.patch_sample
+
+    def recording(img_, x0, y0a, px, py, P=image.DESC_P):
+        ix = torch.floor(torch.clamp(px, 0.0, P - 1.0)).to(torch.int64)
+        iy = torch.floor(torch.clamp(py, 0.0, P + 7.0)).to(torch.int64)
+        taps.append((iy.amin(1), torch.clamp(iy + 1, max=P + 7).amax(1),
+                     ix.amin(1), torch.clamp(ix + 1, max=P - 1).amax(1)))
+        return real(img_, x0, y0a, px, py, P)
+
+    monkeypatch.setattr(orient, "patch_sample", recording)
+    monkeypatch.setattr(describe, "patch_sample", recording)
+    d1, _, _, _ = sample.fused_orient_descriptor_plain(T(img), x, y, sc)
+    assert len(taps) == 8 and bool(d1.abs().sum(1).gt(0).all())
+    lo_r, hi_r, lo_c, hi_c = (torch.stack(t) for t in zip(*taps))
+    _, _, fx, fy = patch_origin(x, y, H, W)
+    r0, r1, c0, c1 = sample.support_box(fx, fy, sc)
+    assert bool((r0 <= lo_r.amin(0)).all() and (hi_r.amax(0) <= r1).all())
+    assert bool((c0 <= lo_c.amin(0)).all() and (hi_c.amax(0) <= c1).all())
+    assert bool((r0 >= 0).all() and (r1 <= 47).all() and (c0 >= 0).all()
+                and (c1 <= 39).all())
+    area = ((r1 - r0 + 1) * (c1 - c0 + 1)).to(torch.float32)
+    if case == "large_scales":
+        assert bool(((c0 == 0) & (c1 == 39)).any())
+    else:
+        assert float(area.mean()) < 0.5 * 48 * 40
