@@ -68,15 +68,30 @@ Phases, each of which fails the run on any error:
    ``sift --octaves 9`` (two K3 launches per image), both with
    ``--homography`` and gated against the JAX CLI; then
    ``run_two_view`` at ``PipelineConfig()`` as it stands;
-9. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
+9. multi-view SfM on a 12-frame 576 x 720 sequence rendered on an arc
+   (``tests/synthetic_sequence.py``) at the CLI's defaults: (a)
+   ``reconstruct`` of its 12 PGMs through the CLI with ``--checkpoint``
+   (PLY vertices = ``num_points``, the checkpoint equal to the run's
+   map), (b) ``run_incremental`` on the float frames with the closure
+   pair (0, 11), each gated against the JAX package's run on the same
+   frames (poses registered, points, px, and ATE and rotation errors
+   against the rendered poses); ms per registered frame by stage; then
+   ``run_ba``'s dense LU and CG on (b)'s global BA problem, with camera
+   0 fixed and with none fixed, and on a free 36-camera ring, against
+   a float64 CPU solve (final cost, gap, ms per LM iteration; the
+   solver ``run_ba``'s "auto" picks must end within 1e-3 of float64).  Its
+   kernels run at the bench path's shapes (the same image size and
+   SIFT configuration), where phase 3 holds them;
+10. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
    names a directory holding ``viff.000.ppm`` and ``viff.001.ppm``
    (bench.py's fixture); skipped, and said so, when it is unset or the
    files are absent.
 
-Each of the main paths (phases 4 to 8) runs with every launch count set
+Each of the main paths (phases 4 to 9) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
 it goes through, the base chain exactly once per image and K3 once per
-image and 8 octaves it extracts, and together they launch all eight
+image and 8 octaves it extracts, K6 once per matched pair on the
+sequence, and together they launch all eight
 (K1 and K2 are one kernel).  The last lines of
 standard output are the kernels' JSON record (each kernel's
 ``launches`` summed over those paths, its ``max_abs_err`` the largest
@@ -89,6 +104,7 @@ A detailed JSON report goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -157,6 +173,25 @@ JAX_CLI_SIFT = {
     "octaves_9": (["--octaves", "9"], (3270, 3220)),
 }
 
+# The JAX package on synthetic_sequence(576, 720) (12 frames on an arc,
+# tests/synthetic_sequence.py) at the CLI's defaults (1,024 points per
+# octave, 1,024 hypotheses at 3e-6, 20 BA iterations, seed 0), measured
+# on CPU by `tests/jax_cli_reference.py --parts incremental`: the CLI on
+# the frames' PGMs ("cli") and run_incremental on the float frames with
+# closure (0, 11) ("module").  Poses registered, points, reprojection
+# px, and against the rendered poses the Sim(3)-aligned ATE (units:
+# the arc's radius is 7) and the median / largest rotation error in
+# degrees.  The port must register as many poses, reach 90% of the
+# points, px <= JAX / 0.9, and ATE and rotation errors <= 3x JAX's.
+JAX_SEQUENCE = {
+    "cli": {"poses": 12, "points": 7008, "px": 0.1999, "ate": 0.00034219950024084994,
+            "rot_median_deg": 0.0026895166511059377,
+            "rot_max_deg": 0.013062056904247365},
+    "module": {"poses": 12, "points": 6906, "px": 0.20272707000263263,
+               "ate": 0.0003446777504218315, "rot_median_deg": 0.0031986157657363313,
+               "rot_max_deg": 0.013636028924477822},
+}
+
 # One NVIDIA H100 SXM (NVIDIA's data sheet; dense rates at 700 W): the
 # least time a kernel could take is the larger of its bytes over the
 # memory rate and its operations over the peak rate for their type.
@@ -187,18 +222,36 @@ def k3_launches(images: int, octaves: int = 5) -> int:
     return images * -(-octaves // 8)
 
 
-# Images each main path extracts (phases 4 to 8): 16 bench images; 2
+# The sequence phase: 12 frames, the CLI's run without a closure pair,
+# then run_incremental with one.
+SEQ_FRAMES = 12
+SEQ_CLOSURES = [(0, 11)]
+N_BACK = 3     # run_incremental's default
+
+
+def sequence_matches(n_frames: int, closures: int = 0) -> int:
+    """Matcher calls (one K6 launch each) of one run_incremental: the
+    bootstrap pair, min(i, N_BACK) previous frames for each frame
+    i >= 2, then each closure pair."""
+    return 1 + sum(min(i, N_BACK) for i in range(2, n_frames)) + closures
+
+
+# Images each main path extracts (phases 4 to 9): 16 bench images; 2
 # up-scale, 1 module-API, 2 window and 2 gated images; the CLI's 16
 # reconstruct images, then 3 sift runs of 2 images, the last with 9
-# octaves.  The base chain launches once per image, K3 once per image
-# and 8 octaves.
+# octaves; the sequence's 12 frames twice.  The base chain launches once
+# per image, K3 once per image and 8 octaves.
 PATH_CHAIN = {"bench": 16, "upscale": 2, "module_api": 1, "upscale_window": 2,
-              "upscale_lowest": 2, "cli": 16 + 4 + 2}
+              "upscale_lowest": 2, "cli": 16 + 4 + 2, "sequence": 2 * SEQ_FRAMES}
 PATH_K3 = {"bench": k3_launches(16), "upscale": k3_launches(2),
            "module_api": k3_launches(1), "upscale_window": k3_launches(2),
            "upscale_lowest": k3_launches(2),
-           "cli": k3_launches(16) + k3_launches(4) + k3_launches(2, 9)}
-# Kernels each main path must launch (phases 4 to 8).
+           "cli": k3_launches(16) + k3_launches(4) + k3_launches(2, 9),
+           "sequence": k3_launches(2 * SEQ_FRAMES)}
+# K6 launches where a path fixes them: the sequence's matcher calls.
+PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
+           + sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES))}
+# Kernels each main path must launch (phases 4 to 9).
 _BASE = {"base_chain", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
     "bench": _BASE | {"fused_orient_descriptor", "match_top2"},
@@ -208,6 +261,7 @@ PATH_KERNELS = {
                                "match_top2"},
     "upscale_lowest": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
+    "sequence": _BASE | {"fused_orient_descriptor", "match_top2"},
 }
 
 
@@ -359,7 +413,8 @@ KERNEL_SOURCES = {
 
 def check_path_launches(path, launches, gates):
     """Every kernel the path goes through launched in its run, the base
-    chain once per image, K3 once per image and 8 octaves."""
+    chain once per image, K3 once per image and 8 octaves, and K6 once
+    per matched pair where the path fixes the pairs."""
     for name in sorted(PATH_KERNELS[path]):
         gates.check(launches[name] > 0, f"kernel {name} was not launched on the "
                     f"{path} path")
@@ -369,6 +424,10 @@ def check_path_launches(path, launches, gates):
     gates.check(launches["detect_maps"] == PATH_K3[path],
                 f"K3 launched {launches['detect_maps']} times on the {path} path, "
                 f"not {PATH_K3[path]}")
+    if path in PATH_K6:
+        gates.check(launches["match_top2"] == PATH_K6[path],
+                    f"K6 launched {launches['match_top2']} times on the {path} "
+                    f"path, not {PATH_K6[path]}")
 
 
 def _conv(taps, stride, dev):
@@ -1330,8 +1389,247 @@ def cli_phase(pair, rpair, gates, dev, card):
             "pipeline_config_default": dflt}, launches
 
 
+@contextlib.contextmanager
+def spy(module, name):
+    """Record (args, kwargs, result) of each call of ``module.name``
+    inside the block; the function itself is restored after it."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def sequence_quality(R, t, pose_valid, seq):
+    """``synthetic_sequence.pose_quality`` by the port's metrics, as
+    tests/jax_cli_reference.py measures the JAX package's."""
+    from sfm_tpu_torch.utils import metrics
+    from synthetic_sequence import pose_quality
+
+    return pose_quality(metrics, R.cpu().numpy(), t.cpu().numpy(),
+                        pose_valid.cpu().numpy(), seq)
+
+
+def gate_sequence(r, ref, gates, where):
+    """A sequence run against the JAX package's on the same frames."""
+    gates.check(r["poses"] == ref["poses"],
+                f"{where}: {r['poses']} poses registered, the JAX package {ref['poses']}")
+    for k in ("ate", "rot_median_deg", "rot_max_deg"):
+        gates.check(r[k] <= 3.0 * ref[k], f"{where}: {k} {r[k]:.6g} > 3 x the JAX "
+                    f"package's {ref[k]:.6g}")
+    gates.check(r["points"] >= 0.9 * ref["points"], f"{where}: {r['points']} points "
+                f"< 90% of the JAX package's {ref['points']}")
+    gates.check(r["px"] <= ref["px"] / 0.9, f"{where}: {r['px']:.4f} px > the JAX "
+                f"package's {ref['px']:.4f} / 0.9")
+    gates.check(r["ba_cost_final"] < r["ba_cost_initial"],
+                f"{where}: the BA cost did not fall ({r['ba_cost_initial']:.6g} -> "
+                f"{r['ba_cost_final']:.6g})")
+
+
+def solver_ab(R, t, X, problem, iters):
+    """One BA problem solved by run_ba's dense LU and its CG on the card,
+    against a float64 dense solve on the CPU: final costs, the relative
+    gap to float64, and ms per LM iteration (CUDA events around whole
+    runs of ``iters`` iterations, 3 runs after a warm-up)."""
+    import torch
+
+    from sfm_tpu_torch.models import bundle_adjust as ba
+
+    def f64(a):
+        return a.detach().cpu().double() if a.is_floating_point() else a.cpu()
+
+    M, P = R.shape[0], X.shape[0]
+    t0 = time.perf_counter()
+    ref, ref_costs = ba.run_ba(f64(R), f64(t), f64(X),
+                               ba.BAProblem(*map(f64, problem)), iters=iters,
+                               solver="dense")
+    c_ref = float(ref_costs[-1])
+    out = {"cameras": M, "points": P, "fixed_cameras": int(problem.fixed.sum()),
+           "observation_slots": problem.mask.shape[0],
+           "observations": int(problem.mask.sum()), "iters": iters,
+           "auto": ba.resolve_solver("auto", M, P),
+           "cpu_float64_dense": {"cost_initial": float(ref_costs[0]),
+                                 "cost_final": c_ref,
+                                 "seconds": time.perf_counter() - t0}}
+    for solver in ("dense", "cg"):
+        ms = cuda_ms(lambda: ba.run_ba(R, t, X, problem, iters=iters, solver=solver),
+                     reps=3, warmup=1)
+        fin, costs = ba.run_ba(R, t, X, problem, iters=iters, solver=solver)
+        c = float(costs[-1])
+        out[solver] = {"cost_initial": float(costs[0]), "cost_final": c,
+                       "gap_to_float64": (c - c_ref) / c_ref, "ms_per_iter": ms / iters,
+                       "max_rotation_diff_to_float64": float(
+                           (fin.R.cpu().double() - ref.R).abs().max()),
+                       "finite": bool(torch.isfinite(costs).all())}
+    return out
+
+
+def ba_solver_ab(state, uv, kp_valid, K_inv, iters, dev):
+    """run_ba's solvers on three problems: the sequence's global BA (the
+    map as run_incremental hands it to its global BA; camera 0 fixed,
+    the scale gauge held by the damping), the same with no camera fixed
+    (the 7-dimensional similarity gauge held by the damping alone, as in
+    the JAX package's turntable free-BA stage), and a 36-camera ring
+    with no camera fixed (``tests/ba_problems.py``)."""
+    import torch
+
+    from ba_problems import ring_problem
+    from sfm_tpu_torch.models import bundle_adjust as ba
+    from sfm_tpu_torch.models import incremental
+
+    problem = incremental.build_ba_problem(state, uv, kp_valid, K_inv)
+    R0, t0, X0, *ring = ring_problem(M=36, P=400)
+    ring = ba.BAProblem(*(torch.as_tensor(a, device=dev, dtype=torch.float32)
+                          if a.dtype.kind == "f" else torch.as_tensor(a, device=dev)
+                          for a in ring))
+    r32 = [torch.as_tensor(a, device=dev, dtype=torch.float32) for a in (R0, t0, X0)]
+    free = problem._replace(fixed=torch.zeros_like(problem.fixed))
+    return {"sequence": solver_ab(state.R, state.t, state.X, problem, iters),
+            "sequence_free_gauge": solver_ab(state.R, state.t, state.X, free, iters),
+            "ring36_free_gauge": solver_ab(*r32, ring, iters)}
+
+
+def sequence_phase(gates, dev, card):
+    """Phase 9: multi-view SfM on the 12-frame arc sequence
+    (``tests/synthetic_sequence.py``, 576 x 720, the CLI's defaults):
+    (a) ``reconstruct`` of its 12 PGMs through the CLI with a map
+    checkpoint, (b) ``run_incremental`` on the float frames with the
+    closure pair (0, 11), each gated against the JAX package's run on
+    the same frames and the rendered poses; then the BA solver A/B on
+    (b)'s global BA problem.  Returns (result, launches of (a) + (b))."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from sfm_tpu_torch import cli
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu_torch.models import incremental
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.utils.checkpoint import load_map
+    from sfm_tpu_torch.utils.timing import StageTimer
+    from synthetic_sequence import synthetic_sequence, write_pgms
+
+    t0 = time.perf_counter()
+    seq = synthetic_sequence(576, 720, n_frames=SEQ_FRAMES)
+    log(f"sequence: {SEQ_FRAMES} frames of 576 x 720 rendered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    f = float(seq["K"][0, 0])
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_pgms(d, seq["images"])
+        ply, js, npz = (os.path.join(d, n) for n in ("seq.ply", "seq.json", "seq.npz"))
+        _cuda.reset_launches()
+        with spy(incremental, "run_incremental") as calls, \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["reconstruct", *paths, "--focal", f"{f:g}", "--out", ply,
+                           "--metrics", js, "--checkpoint", npz])
+        launches_a = dict(_cuda.LAUNCHES)
+        with open(js) as fh:
+            m = json.load(fh)
+        run_state = calls[0][2].state
+        ckpt, extra = load_map(npz)
+        vertices = _ply_vertices(ply)
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(ckpt, run_state))
+    a = {"rc": rc, "device": m["device"], "poses": m["poses_registered"],
+         "points": m["num_points"], "px": m["mean_reproj_px"],
+         "ba_cost_initial": m["ba_cost_initial"], "ba_cost_final": m["ba_cost_final"],
+         **sequence_quality(ckpt.R, ckpt.t, ckpt.pose_valid, seq),
+         "ply_vertices": vertices, "checkpoint_equals_run": same,
+         "checkpoint_K": extra["K"], "ms": m["stage_times"]["pipeline"]["total_ms"]}
+    log(f"sequence (a) cli reconstruct x{SEQ_FRAMES} PGMs: poses {a['poses']} points "
+        f"{a['points']} px {a['px']:.4f} ATE {a['ate']:.6f} rotation error median "
+        f"{a['rot_median_deg']:.5f} max {a['rot_max_deg']:.5f} deg, BA cost "
+        f"{a['ba_cost_initial']:.6g} -> {a['ba_cost_final']:.6g}; PLY {vertices} "
+        f"vertices; checkpoint equals the run's map: {same}; {a['ms']:.0f} ms "
+        f"(host clock, {card})")
+    gates.check(rc == 0, f"sequence cli: exit code {rc}")
+    gates.check(a["device"] == torch.cuda.get_device_name(0),
+                f"sequence cli: ran on {a['device']}")
+    gates.check(vertices == a["points"], f"sequence cli: PLY holds {vertices} "
+                f"vertices, num_points {a['points']}")
+    gates.check(same, "sequence cli: the checkpoint differs from the run's map")
+    gates.check(int(ckpt.pose_valid.sum()) == a["poses"]
+                and int(ckpt.X_valid.sum()) == a["points"],
+                "sequence cli: the checkpoint's counts differ from the metrics")
+    gate_sequence(a, JAX_SEQUENCE["cli"], gates, "sequence cli")
+
+    cfg = PipelineConfig(sift=SiftConfig(max_pts_per_octave=1024),
+                         ransac=RansacConfig(n_hyps=1024, threshold=3e-6))
+    imgs = [torch.as_tensor(im, device=dev) for im in seq["images"]]
+    timer = StageTimer()
+    with spy(incremental, "_global_ba") as gcalls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = incremental.run_incremental(imgs, seq["K"], cfg, seed=0, ba_iters=20,
+                                          closure_pairs=SEQ_CLOSURES, timer=timer)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    st = res.state
+    costs = res.ba_costs.cpu()
+    b = {"poses": int(st.pose_valid.sum()), "points": int(st.X_valid.sum()),
+         "px": math.sqrt(max(float(res.mean_reproj), 0.0) / 2) * f,
+         "ba_cost_initial": float(costs[0]), "ba_cost_final": float(costs[-1]),
+         **sequence_quality(st.R, st.t, st.pose_valid, seq), "ms": ms,
+         "finite": bool(torch.isfinite(st.X).all() and torch.isfinite(costs).all()),
+         "stage_ms": {k: v["total_ms"] for k, v in timer.summary().items()}}
+    b["stage_ms_per_frame"] = {k: v / max(b["poses"], 1)
+                               for k, v in b["stage_ms"].items()}
+    log(f"sequence (b) run_incremental, closure {SEQ_CLOSURES}: poses {b['poses']} "
+        f"points {b['points']} px {b['px']:.4f} ATE {b['ate']:.6f} rotation error "
+        f"median {b['rot_median_deg']:.5f} max {b['rot_max_deg']:.5f} deg, BA cost "
+        f"{b['ba_cost_initial']:.6g} -> {b['ba_cost_final']:.6g}; {ms:.0f} ms")
+    per = ", ".join(f"{k} {v:.2f}" for k, v in b["stage_ms_per_frame"].items())
+    log(f"sequence (b) ms per registered frame (host clock around synchronized "
+        f"stages, {card}): {per}")
+    gates.check(b["finite"], "sequence run_incremental: non-finite map or costs")
+    gate_sequence(b, JAX_SEQUENCE["module"], gates, "sequence run_incremental")
+    k6_a = launches_a["match_top2"]
+    k6_b = launches["match_top2"] - k6_a
+    log(f"launches in the sequence runs: {launches} (K6: cli {k6_a}, "
+        f"run_incremental {k6_b}; matched pairs {sequence_matches(SEQ_FRAMES)} and "
+        f"{sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES))})")
+    gates.check(k6_a == sequence_matches(SEQ_FRAMES),
+                f"sequence cli: K6 launched {k6_a} times")
+    check_path_launches("sequence", launches, gates)
+
+    # The BA solver A/B on (b)'s global problem, after the counts were read.
+    g_args = gcalls[0][0]
+    ab = ba_solver_ab(*g_args[:4], iters=20, dev=dev)
+    for name, p in ab.items():
+        ref = p["cpu_float64_dense"]
+        log(f"BA solver A/B, {name}: {p['cameras']} cameras "
+            f"({p['fixed_cameras']} fixed), {p['points']} point slots, "
+            f"{p['observations']} of {p['observation_slots']} observations, "
+            f"{p['iters']} LM iterations; run_ba's auto: {p['auto']}; float64 CPU "
+            f"dense: cost {ref['cost_initial']:.6g} -> {ref['cost_final']:.6g}")
+        for solver in ("dense", "cg"):
+            r = p[solver]
+            log(f"  {solver} on the card: cost {r['cost_initial']:.6g} -> "
+                f"{r['cost_final']:.6g} (gap to float64 {r['gap_to_float64']:+.3e}, "
+                f"max |R - R_f64| {r['max_rotation_diff_to_float64']:.2e}), "
+                f"{r['ms_per_iter']:.3f} ms per LM iteration (CUDA events, {card})")
+            gates.check(r["finite"] and r["cost_final"] < r["cost_initial"],
+                        f"BA A/B {name} {solver}: cost {r['cost_initial']} -> "
+                        f"{r['cost_final']}")
+        gap = p[p["auto"]]["gap_to_float64"]
+        gates.check(abs(gap) <= 1e-3, f"BA A/B {name}: run_ba's auto solver "
+                    f"({p['auto']}) ends {gap:+.3e} from the float64 cost")
+    return {"cli": a, "module": b, "ba_solver_ab": ab,
+            "launches_cli": launches_a}, launches
+
+
 def dino(cfg, gates, dev):
-    """Phase 9: bench.py's gates on the dino pair, where present."""
+    """Phase 10: bench.py's gates on the dino pair, where present."""
     import torch
 
     d = os.environ.get("SFM_DINO_DIR")
@@ -1408,6 +1706,7 @@ def main() -> int:
     win = upscale_window_path(rpair, up, gates, dev, card)
     launches["upscale_window"] = win["launches"]
     cli_res, launches["cli"] = cli_phase(pair, rpair, gates, dev, card)
+    seq_res, launches["sequence"] = sequence_phase(gates, dev, card)
     # One record per kernel: the largest error over every shape it was
     # held at; times and bounds at the bench path's shapes (K7's at the
     # up-scale path's, K8's at the module API's, the only main path that
@@ -1430,7 +1729,8 @@ def main() -> int:
                    "seeds": rows, "upscale": up, "upscale_lowest_scale_1": low,
                    "k3_nine_octaves": nine, "k3_past_13_planes": wide,
                    "base_chain_odd_and_9_levels": odd, "module_api": api,
-                   "upscale_window": win, "cli": cli_res, "dino": dino_res,
+                   "upscale_window": win, "cli": cli_res, "sequence": seq_res,
+                   "dino": dino_res,
                    "gate_failures": gates.failures}, fh, indent=1, default=float)
     if gates.failures:
         log(f"{len(gates.failures)} gate(s) failed")

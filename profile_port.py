@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Stage times and a device profile of the PyTorch + CUDA port's
-two-view main path on one card.
+two-view main path, or of its multi-view path, on one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
     python3 profile_port.py [--pairs 5] [--tvote-rounds N]
+    python3 profile_port.py --sequence
 
 Drives ``sfm_tpu_torch`` with ``chip_smoke.py``'s ``slice_config``
 (bench.py's own config; ``--tvote-rounds`` sets its translation re-vote
@@ -17,6 +18,16 @@ profiles one pair with ``torch.profiler`` and prints the device busy
 share, the number of kernel launches per stage and the top operators
 by device time; a JSON summary goes to
 ``chiprun_out/profile_port_tvote<N>.json``.
+
+``--sequence`` drives ``run_incremental`` instead, on
+``chip_smoke.py``'s sequence phase (the 12-frame 576 x 720 arc,
+``tests/synthetic_sequence.py``, the CLI's defaults, closure (0, 11)):
+per registered frame, the host-clock ms of each stage (extract, match,
+bootstrap, register = PnP registration, local_ba, closure, global_ba,
+each ending in a synchronize), then one profiled run's kernel launches
+and device ms per stage and per registered frame, and the same
+run's ms per frame with ``torch.use_deterministic_algorithms(True)``;
+a JSON summary goes to ``chiprun_out/profile_port_sequence.json``.
 """
 
 from __future__ import annotations
@@ -32,6 +43,110 @@ import time
 from chip_smoke import ROOT, card_line, slice_config
 
 
+def kernels_by_stage(prof, stages):
+    """(device kernel events, {stage: [launches, device ms]}) of a
+    profile whose stages are CPU-side ranges that end in a synchronize,
+    so each stage's kernels run inside its range; kernels outside every
+    range go to "other"."""
+    import torch
+
+    events = prof.events()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.name in stages
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    # Device kernels: CUDA-side events other than the stage annotations
+    # mirrored onto the device timeline and the profiler's own buffers.
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in stages and "Buffer" not in e.name]
+    by_stage = {name: [0, 0.0] for name in (*stages, "other")}
+    for e in kern:
+        name = next((n for n, a, b in spans
+                     if a <= e.time_range.start <= b), "other")
+        by_stage[name][0] += 1
+        by_stage[name][1] += e.time_range.elapsed_us() / 1e3
+    return kern, by_stage
+
+
+def sequence(card) -> int:
+    """The multi-view path's stage times and device profile (module
+    docstring)."""
+    import torch
+
+    from chip_smoke import SEQ_CLOSURES, SEQ_FRAMES
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu_torch.models import incremental
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.utils.timing import StageTimer
+    from synthetic_sequence import synthetic_sequence
+
+    dev = torch.device("cuda", 0)
+    seq = synthetic_sequence(576, 720, n_frames=SEQ_FRAMES)
+    imgs = [torch.as_tensor(im, device=dev) for im in seq["images"]]
+    cfg = PipelineConfig(sift=SiftConfig(max_pts_per_octave=1024),
+                         ransac=RansacConfig(n_hyps=1024, threshold=3e-6))
+    _cuda.library()
+    stages = ("extract", "match", "bootstrap", "register", "local_ba", "closure",
+              "global_ba")
+
+    def run(timer):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = incremental.run_incremental(imgs, seq["K"], cfg, seed=0, ba_iters=20,
+                                          closure_pairs=SEQ_CLOSURES, timer=timer)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    run(None)                                       # warm-up
+    timer = StageTimer()
+    res, wall = run(timer)
+    n = int(res.state.pose_valid.sum())
+    per_frame = {k: v["total_ms"] / n for k, v in timer.summary().items()}
+    print(f"card: {card}; {SEQ_FRAMES} frames, {n} registered, closure {SEQ_CLOSURES}")
+    print(f"run wall (ms, stages synchronized): {wall:.1f} = {wall / n:.2f} per frame")
+    for k, v in per_frame.items():
+        print(f"  {k:10s} {v:9.2f} ms per registered frame")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, prof_wall = run(StageTimer())
+    kern, by_stage = kernels_by_stage(prof, stages)
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    print(f"profiled run: wall {prof_wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / prof_wall:.1f}%), {len(kern)} kernels")
+    for k, (cnt, ms) in by_stage.items():
+        print(f"  {k:10s} {cnt:7d} kernels ({cnt / n:8.1f} per frame)  {ms:9.3f} ms "
+              f"device ({ms / n:7.3f} per frame)")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
+
+    # The same run with deterministic algorithms (index_add_ without float
+    # atomics): ms per frame, and whether the result changes.
+    torch.use_deterministic_algorithms(True)
+    try:
+        det_timer = StageTimer()
+        det_res, det_wall = run(det_timer)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det_per_frame = {k: v["total_ms"] / n for k, v in det_timer.summary().items()}
+    print(f"deterministic algorithms: wall {det_wall:.1f} ms = {det_wall / n:.2f} per "
+          f"frame (default {wall / n:.2f}); points {int(det_res.state.X_valid.sum())} "
+          f"(default {int(res.state.X_valid.sum())})")
+    for k, v in det_per_frame.items():
+        print(f"  {k:10s} {v:9.2f} ms per registered frame (default {per_frame[k]:.2f})")
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "profile_port_sequence.json"), "w") as fh:
+        json.dump({"card": card, "frames": SEQ_FRAMES, "registered": n,
+                   "wall_ms": wall, "stage_ms_per_frame": per_frame,
+                   "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
+                   "kernel_launches": len(kern), "by_stage": by_stage,
+                   "deterministic": {"wall_ms": det_wall,
+                                     "stage_ms_per_frame": det_per_frame,
+                                     "points": int(det_res.state.X_valid.sum())}},
+                  fh, indent=1)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -41,8 +156,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--tvote-rounds", type=int, default=0)
+    ap.add_argument("--sequence", action="store_true",
+                    help="profile run_incremental on the 12-frame sequence")
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "tests"))
+    if args.sequence:
+        return sequence(card_line())
     from sfm_tpu_torch.models import two_view
     from sfm_tpu_torch.ops import _cuda
     from sfm_tpu_torch.sift import frontend
@@ -103,25 +222,8 @@ def main() -> int:
         one_pair(1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    stages = ("detect", "sample", "match", "geometry")
-    events = prof.events()
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
-             if e.name in stages
-             and e.device_type == torch.autograd.DeviceType.CPU]
-    # Device kernels: CUDA-side events other than the stage annotations
-    # mirrored onto the device timeline and the profiler's own buffers.
-    kern = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in stages and "Buffer" not in e.name]
+    kern, by_stage = kernels_by_stage(prof, ("detect", "sample", "match", "geometry"))
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
-    by_stage = {name: [0, 0.0] for name in stages}
-    by_stage["other"] = [0, 0.0]
-    for e in kern:
-        # Each stage ends in a synchronize, so its kernels run inside it.
-        name = next((n for n, a, b in spans
-                     if a <= e.time_range.start <= b), "other")
-        by_stage[name][0] += 1
-        by_stage[name][1] += e.time_range.elapsed_us() / 1e3
     print(f"profiled pair: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
           f"{len(kern)} kernels")

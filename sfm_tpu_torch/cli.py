@@ -1,20 +1,22 @@
 """Command-line driver of the port (counterpart of ``sfm_tpu/cli.py``):
-reconstruct from image files and export a PLY and JSON metrics, or run
-the standalone SIFT demo.  The same subcommands and options as the JAX
+reconstruct from image files (two views, or incremental SfM over 3+)
+and export a PLY, JSON metrics and a map checkpoint, or run the
+standalone SIFT demo.  The same subcommands and options as the JAX
 package's driver, with ``--device`` (default ``cuda``) in place of its
 ``--platform`` backend switch: without a card the command raises, and
 it runs on the CPU only when asked to with ``--device cpu``.
 
 Usage:
-  python -m sfm_tpu_torch reconstruct IMG1 IMG2 \\
-      --focal 2360 [--cx CX --cy CY] --out cloud.ply [--metrics m.json]
+  python -m sfm_tpu_torch reconstruct IMG1 IMG2 [IMG...] \\
+      --focal 2360 [--cx CX --cy CY] --out cloud.ply [--metrics m.json] \\
+      [--checkpoint map.npz] [--ba-iters 20] [--closure I,J]
   python -m sfm_tpu_torch sift IMG [IMG2] [--thresh 2.0] [--up-scale] \\
       [--out feats.npz] [--metrics out.json] [--homography]
 
-Not ported yet, and refused with ``NotImplementedError``: reconstruct
-with 3+ images (``models/incremental.py``), ``--mesh`` and
-``--distributed`` (``parallel/``) and ``--checkpoint``
-(``utils/checkpoint.py``).
+``--checkpoint`` writes the incremental map (3+ images); a two-image
+run has no map state and, as in the JAX package, writes none.  Not
+ported yet, and refused with ``NotImplementedError``: ``--mesh`` and
+``--distributed`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -73,24 +75,15 @@ def _emit(metrics, timer, path):
 def cmd_reconstruct(args):
     if len(args.images) < 2:
         raise ValueError("reconstruct needs at least two images")
-    if len(args.images) > 2:
-        raise NotImplementedError(
-            "reconstruct with 3+ images: incremental SfM (models/incremental.py) "
-            "is not ported yet")
     if args.mesh or args.distributed:
         raise NotImplementedError(
             "--mesh / --distributed: the distributed layer (parallel/) is not "
             "ported yet")
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint: map checkpoints (utils/checkpoint.py) are not ported "
-            "yet")
     dev = _device(args.device)
     import numpy as np
     import torch
 
     from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
-    from sfm_tpu_torch.models import two_view
     from sfm_tpu_torch.utils.timing import StageTimer, sync
 
     timer = StageTimer()
@@ -105,25 +98,53 @@ def cmd_reconstruct(args):
     )
     timer.record("load_images", time.perf_counter() - t0)
 
-    t0 = time.perf_counter()
-    res = two_view.run_two_view(*(torch.as_tensor(a, device=dev)
-                                  for a in (imgs[0], imgs[1], K)),
-                                cfg, seed=args.seed)
-    sync(res)
-    timer.record("pipeline", time.perf_counter() - t0)
-    points = res.points.cpu().numpy()
-    valid = res.point_valid.cpu().numpy()
-    err_px = math.sqrt(max(float(res.reproj_err), 0.0) / 2) * float(args.focal)
-    metrics = {
-        "mode": "two_view",
-        "device": _device_name(dev),
-        "num_matches": int(res.num_matches),
-        "num_inliers": int(res.num_inliers),
-        "num_points": int(valid.sum()),
-        "mean_reproj_px": round(err_px, 4),
-        "R": np.round(res.R.cpu().numpy(), 6).tolist(),
-        "t": np.round(res.t.cpu().numpy(), 6).tolist(),
-    }
+    if len(imgs) == 2:
+        from sfm_tpu_torch.models import two_view
+
+        t0 = time.perf_counter()
+        res = two_view.run_two_view(*(torch.as_tensor(a, device=dev)
+                                      for a in (imgs[0], imgs[1], K)),
+                                    cfg, seed=args.seed)
+        sync(res)
+        timer.record("pipeline", time.perf_counter() - t0)
+        points = res.points.cpu().numpy()
+        valid = res.point_valid.cpu().numpy()
+        err_px = math.sqrt(max(float(res.reproj_err), 0.0) / 2) * float(args.focal)
+        metrics = {
+            "mode": "two_view",
+            "device": _device_name(dev),
+            "num_matches": int(res.num_matches),
+            "num_inliers": int(res.num_inliers),
+            "num_points": int(valid.sum()),
+            "mean_reproj_px": round(err_px, 4),
+            "R": np.round(res.R.cpu().numpy(), 6).tolist(),
+            "t": np.round(res.t.cpu().numpy(), 6).tolist(),
+        }
+        state = None
+    else:
+        from sfm_tpu_torch.models import incremental
+
+        t0 = time.perf_counter()
+        res = incremental.run_incremental(
+            [torch.as_tensor(im, device=dev) for im in imgs], K, cfg,
+            seed=args.seed, ba_iters=args.ba_iters, closure_pairs=args.closure)
+        sync(res)
+        timer.record("pipeline", time.perf_counter() - t0)
+        state = res.state
+        points = state.X.cpu().numpy()
+        valid = state.X_valid.cpu().numpy()
+        err_px = math.sqrt(max(float(res.mean_reproj), 0.0) / 2) * float(args.focal)
+        costs = res.ba_costs.cpu().numpy()
+        metrics = {
+            "mode": "incremental",
+            "device": _device_name(dev),
+            "num_images": len(imgs),
+            "poses_registered": int(state.pose_valid.sum()),
+            "num_points": int(valid.sum()),
+            "mean_reproj_px": round(err_px, 4),
+            "ba_cost_initial": float(costs[0]),
+            "ba_cost_final": float(costs[-1]),
+        }
     if args.out:
         from sfm_tpu_torch.io import image_io
 
@@ -131,6 +152,11 @@ def cmd_reconstruct(args):
         image_io.save_ply(args.out, points, valid=valid.astype(np.uint8))
         timer.record("export", time.perf_counter() - t0)
         metrics["ply"] = args.out
+    if args.checkpoint and state is not None:
+        from sfm_tpu_torch.utils.checkpoint import save_map
+
+        save_map(args.checkpoint, state, extra={"K": K.tolist()})
+        metrics["checkpoint"] = args.checkpoint
     _emit(metrics, timer, args.metrics)
     return 0
 
@@ -216,9 +242,9 @@ def build_parser():
                         help="torch device to run on (default cuda; the command "
                              "raises without a card unless given cpu)")
 
-    r = sub.add_parser("reconstruct", help="reconstruct from 2 images")
+    r = sub.add_parser("reconstruct", help="reconstruct from 2+ images")
     r.add_argument("images", nargs="+",
-                   help="input images (2 = two-view; 3+ = incremental, not ported)")
+                   help="input images (2 = two-view; 3+ = incremental)")
     r.add_argument("--focal", type=float, default=2360.0,
                    help="focal length in px (reference dino default 2360)")
     r.add_argument("--cx", type=float, default=None)
@@ -226,7 +252,8 @@ def build_parser():
     r.add_argument("--out", default=None, help="output PLY path")
     r.add_argument("--metrics", default=None, help="write metrics JSON here")
     r.add_argument("--checkpoint", default=None,
-                   help="save map checkpoint (npz; not ported)")
+                   help="save the map checkpoint (npz; 3+ images, the only "
+                        "runs with map state)")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--octaves", type=int, default=5)
     r.add_argument("--thresh", type=float, default=1.0)
@@ -234,7 +261,7 @@ def build_parser():
     r.add_argument("--ransac-hyps", type=int, default=1024)
     r.add_argument("--ransac-thresh", type=float, default=3e-6)
     r.add_argument("--ba-iters", type=int, default=20,
-                   help="bundle-adjustment iterations (incremental; not ported)")
+                   help="bundle-adjustment iterations (incremental)")
 
     def _pair(s):
         a, b = s.split(",")
@@ -242,7 +269,7 @@ def build_parser():
 
     r.add_argument("--closure", type=_pair, action="append", default=[],
                    metavar="I,J",
-                   help="loop-closure frame pair (incremental; not ported)")
+                   help="loop-closure frame pair (incremental)")
     r.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="device mesh (the distributed layer; not ported)")
     r.add_argument("--distributed", action="store_true",

@@ -101,7 +101,7 @@ def refine_relative_pose(R, t, x1, x2, weights=None, *, iters: int = 10,
         g = (JtW @ r[..., None])[..., 0]
         tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1) / 5.0
         H = H + ((damping + lam) * torch.clamp(tr, min=1e-12))[:, None, None] * eye5
-        delta = -torch.linalg.solve(H, g[..., None])[..., 0]
+        delta = -torch.linalg.solve_ex(H, g[..., None])[0][..., 0]
         r_new = residuals(delta, R, t)
         ok = cost_of(r_new, w_in) < cost_of(r, w_in)
         step = torch.where(ok[:, None], delta, torch.zeros_like(delta))

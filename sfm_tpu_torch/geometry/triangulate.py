@@ -1,5 +1,5 @@
-"""Batched DLT triangulation and cheap cheirality depths (counterpart
-of ``sfm_tpu/geometry/triangulate.py``)."""
+"""Batched DLT triangulation, multiview track triangulation and cheap
+cheirality depths (counterpart of ``sfm_tpu/geometry/triangulate.py``)."""
 
 from __future__ import annotations
 
@@ -77,3 +77,39 @@ def reprojection_errors(X, x1, x2, R, t):
     e1 = torch.sum((p1 - x1[..., :2] / x1[..., 2:3]) ** 2, dim=-1)
     e2 = torch.sum((p2 - x2[..., :2] / x2[..., 2:3]) ** 2, dim=-1)
     return e1 + e2
+
+
+@f32_matmul
+def triangulate_tracks(R, t, cam_idx, pt_idx, uv_n, mask, n_points: int):
+    """Multiview linear triangulation over a flat observation list.
+
+    Each observation adds the two cross-product rows of
+    x_h x (R X + t) = 0 to its point's 3x3 normal system (segment sums
+    by ``index_add_``); one batched solve covers every point.
+
+    Args: R, t ``[M, 3, 3]`` / ``[M, 3]`` world -> camera poses;
+    cam_idx, pt_idx ``[O]`` incidence; uv_n ``[O, 2]`` normalized
+    coordinates; mask ``[O]``; n_points the point capacity P.
+
+    Returns (X [P, 3], ok [P]); ok needs >= 2 masked observations and a
+    finite solve.
+    """
+    Rj = R[cam_idx]
+    tj = t[cam_idx]
+    u, v = uv_n[:, 0:1], uv_n[:, 1:2]
+    Ar = torch.stack([u * Rj[:, 2] - Rj[:, 0], v * Rj[:, 2] - Rj[:, 1]], dim=1)
+    br = torch.stack([u[:, 0] * tj[:, 2] - tj[:, 0],
+                      v[:, 0] * tj[:, 2] - tj[:, 1]], dim=1)
+    m = mask.to(uv_n.dtype)
+    Ar = Ar * m[:, None, None]
+    br = br * m[:, None]
+    dt, dev = uv_n.dtype, uv_n.device
+    AtA = torch.zeros((n_points, 3, 3), dtype=dt, device=dev).index_add_(
+        0, pt_idx, torch.einsum("oki,okj->oij", Ar, Ar))
+    Atb = torch.zeros((n_points, 3), dtype=dt, device=dev).index_add_(
+        0, pt_idx, torch.einsum("oki,ok->oi", Ar, -br))
+    nobs = torch.zeros((n_points,), dtype=dt, device=dev).index_add_(0, pt_idx, m)
+    X = torch.linalg.solve_ex(AtA + 1e-6 * torch.eye(3, dtype=dt, device=dev),
+                              Atb[:, :, None])[0][:, :, 0]
+    ok = (nobs >= 2) & torch.isfinite(X).all(dim=1)
+    return torch.where(ok[:, None], X, torch.zeros_like(X)), ok

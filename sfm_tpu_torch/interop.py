@@ -5,10 +5,11 @@ and ``sfm_tpu_torch`` is the configuration (dataclasses with the same
 fields on both sides; ``config_to_torch``) and the pipeline's
 intermediate state — detections,
 keypoints / SIFT results, matches, correspondences ``(uv1, uv2, mask)``,
-RANSAC minimal-set indices, homography fits and two-view results.  The
-JAX side hands these over as numpy arrays (``np.asarray`` of its
-outputs), so this module needs no jax: it maps numpy containers to port
-tensors and back.
+RANSAC minimal-set indices, homography fits, two-view results and the
+multi-view state (PnP results, BA problems and states, the incremental
+map and result).  The JAX side hands these over as numpy arrays
+(``np.asarray`` of its outputs), so this module needs no jax: it maps
+numpy containers to port tensors and back.
 
 Field names are identical on both sides, so a JAX NamedTuple converts
 to the port's class of the same name, and ``to_numpy`` of a port result
@@ -26,6 +27,9 @@ import torch
 
 from sfm_tpu_torch import config
 from sfm_tpu_torch.geometry.homography import HomographyResult
+from sfm_tpu_torch.geometry.pnp import PnPResult
+from sfm_tpu_torch.models.bundle_adjust import BAProblem, BAState
+from sfm_tpu_torch.models.incremental import IncrementalResult, MapState
 from sfm_tpu_torch.models.two_view import TwoViewResult
 from sfm_tpu_torch.sift.detect import Detections
 from sfm_tpu_torch.sift.frontend import Keypoints, SiftResult
@@ -33,7 +37,8 @@ from sfm_tpu_torch.sift.match import Matches
 
 _PORT_TYPES = {cls.__name__: cls for cls in
                (Detections, Keypoints, SiftResult, Matches, HomographyResult,
-                TwoViewResult)}
+                TwoViewResult, PnPResult, BAProblem, BAState, MapState,
+                IncrementalResult)}
 
 
 def _is_namedtuple(obj) -> bool:

@@ -1,11 +1,12 @@
 """Batched small-matrix linear algebra (counterpart of
 ``sfm_tpu/ops/linalg.py``).
 
-Only what the two-view path calls is ported, with the SAME fixed-sweep
-algorithms: cyclic Jacobi for symmetric eigenproblems, the 3x3 SVD
-built on it, Householder QR for the minimal 8x9 null vectors and ridge
-inverse iteration for the least-squares polish.  ``torch.linalg.eigh``
-or ``svd`` are deliberately not substituted: near-degenerate 3x3s
+Only what the two-view and multi-view paths call is ported, with the
+SAME fixed-sweep algorithms: cyclic Jacobi for symmetric eigenproblems,
+the 3x3 SVD built on it (and the polar factor ``so3_project``),
+Householder QR for the minimal 8x9 null vectors and ridge inverse
+iteration for the least-squares polish.  ``torch.linalg.eigh`` or
+``svd`` are deliberately not substituted: near-degenerate 3x3s
 (the essential-matrix case s ~ (1, 1, 0)) pick their eigenvector
 directions by the algorithm, and parity with the JAX package depends
 on it.
@@ -96,7 +97,8 @@ def smallest_eigvec_power(G, *, iters: int = 5):
     A = G + eps * torch.eye(n, dtype=G.dtype, device=G.device)
     v = torch.ones(G.shape[:-1], dtype=G.dtype, device=G.device) / (n ** 0.5)
     for _ in range(iters):
-        w = torch.linalg.solve(A, v[..., None])[..., 0]
+        # solve_ex: no error check, which would wait for the card.
+        w = torch.linalg.solve_ex(A, v[..., None])[0][..., 0]
         nw = torch.linalg.vector_norm(w, dim=-1, keepdim=True)
         v = w / torch.clamp(nw, min=1e-30)
     return v
@@ -180,6 +182,16 @@ def project_to_essential(E, *, sweeps: int = 8):
     U, _, V = svd3x3(E, sweeps=sweeps)
     d = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
     return torch.einsum("...ik,k,...jk->...ij", U, d, V)
+
+
+@f32_matmul
+def so3_project(M, *, sweeps: int = 8):
+    """Nearest rotation matrices (polar decomposition, det = +1):
+    R = U diag(1, 1, det(U V^T)) V^T."""
+    U, _, V = svd3x3(M, sweeps=sweeps)
+    det = det3(torch.einsum("...ik,...jk->...ij", U, V))
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    return torch.einsum("...ik,...k,...jk->...ij", U, d, V)
 
 
 def cross_matrix(t):

@@ -5,7 +5,7 @@ port against, measured on the CPU (JAX's CPU route).
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python3 tests/jax_cli_reference.py \\
-        [--seeds 8] [--parts reconstruct,default,sift,upscale]
+        [--seeds 8] [--parts reconstruct,default,sift,upscale,incremental]
 
 Parts, each printing one JSON line per run:
 
@@ -28,7 +28,16 @@ Parts, each printing one JSON line per run:
   ``lowest_scale`` 0 and 1.0 on the float rotation pair: features,
   ratio-test matches, bench_upscale's H-fit (``PRNGKey(0)``: candidates,
   those > 3 px off the exact homography, the 3 px count) and the H
-  error.
+  error;
+- ``incremental``: ``synthetic_sequence(576, 720)`` (12 frames on an
+  arc, ``tests/synthetic_sequence.py``): the 12 frames as PGMs through
+  ``reconstruct --focal 792 --checkpoint`` at the CLI's defaults (20 BA
+  iterations, seed 0), then ``run_incremental`` on the float frames at
+  the same configuration with ``closure_pairs=[(0, 11)]``: poses
+  registered, points, reprojection px, the BA costs, and the
+  Sim(3)-aligned ATE and the median and largest rotation error of the
+  registered poses (projected onto SO(3) in float64,
+  ``synthetic_sequence.nearest_rotations``) against the rendered ones.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ sys.path[:0] = [os.path.dirname(HERE), HERE]
 from synthetic_pair import (homography_grid_errors, pose_errors_deg,  # noqa: E402
                             rotation_pair, synthetic_pair, transfer_px, write_pgm)
 
-PARTS = ("reconstruct", "default", "sift", "upscale")
+PARTS = ("reconstruct", "default", "sift", "upscale", "incremental")
 
 
 def reconstruct(d, seeds):
@@ -172,6 +181,52 @@ def upscale():
             flush=True)
 
 
+def incremental(d):
+    import time
+
+    import jax.numpy as jnp
+
+    from sfm_tpu import cli
+    from sfm_tpu.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu.models import incremental as inc
+    from sfm_tpu.utils import metrics
+    from sfm_tpu.utils.checkpoint import load_map
+    from synthetic_sequence import pose_quality, synthetic_sequence, write_pgms
+
+    seq = synthetic_sequence(576, 720)
+    paths = write_pgms(d, seq["images"])
+    js, npz = os.path.join(d, "seq.json"), os.path.join(d, "seq.npz")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["--platform", "cpu", "reconstruct", *paths, "--focal", "792",
+                  "--out", os.path.join(d, "seq.ply"), "--metrics", js,
+                  "--checkpoint", npz])
+    with open(js) as fh:
+        m = json.load(fh)
+    st, _ = load_map(npz)
+    print(json.dumps({"jax_cli_incremental": {
+        **{k: m[k] for k in ("poses_registered", "num_points", "mean_reproj_px",
+                             "ba_cost_initial", "ba_cost_final")},
+        **pose_quality(metrics, st.R, st.t, st.pose_valid, seq),
+        "seconds": time.perf_counter() - t0}}), flush=True)
+    # The module path: the float frames, one closure pair.
+    cfg = PipelineConfig(sift=SiftConfig(max_pts_per_octave=1024),
+                         ransac=RansacConfig(n_hyps=1024, threshold=3e-6))
+    t0 = time.perf_counter()
+    res = inc.run_incremental([jnp.asarray(im) for im in seq["images"]],
+                              seq["K"], cfg, seed=0, ba_iters=20,
+                              closure_pairs=[(0, 11)])
+    st = res.state
+    costs = np.asarray(res.ba_costs)
+    print(json.dumps({"jax_run_incremental_closure_0_11": {
+        "poses_registered": int(np.asarray(st.pose_valid).sum()),
+        "num_points": int(np.asarray(st.X_valid).sum()),
+        "mean_reproj_px": float(np.sqrt(float(res.mean_reproj) / 2) * seq["K"][0, 0]),
+        "ba_cost_initial": float(costs[0]), "ba_cost_final": float(costs[-1]),
+        **pose_quality(metrics, st.R, st.t, st.pose_valid, seq),
+        "seconds": time.perf_counter() - t0}}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, default=8)
@@ -190,6 +245,8 @@ def main() -> int:
             sift(d)
         if "upscale" in parts:
             upscale()
+        if "incremental" in parts:
+            incremental(d)
     return 0
 
 

@@ -1,8 +1,9 @@
 """The port's configuration and command-line driver against the JAX
 package's: the same dataclass fields and defaults, the same options
 (apart from JAX's ``--platform`` and the port's ``--device``), and
-``python -m sfm_tpu_torch`` on a small PGM pair giving the metrics of a
-direct ``run_two_view`` / ``extract_sift`` at the same configuration and
+``python -m sfm_tpu_torch`` on a small PGM pair (or three frames of
+the arc sequence) giving the metrics of a direct ``run_two_view`` /
+``extract_sift`` / ``run_incremental`` at the same configuration and
 seed (exactly: the same code on the same CPU)."""
 
 import argparse
@@ -18,11 +19,14 @@ import pytest
 import torch
 
 from synthetic_pair import synthetic_pair, write_pgm
+from synthetic_sequence import synthetic_sequence, write_pgms
 from sfm_tpu import cli as jcli
 from sfm_tpu import config as jconfig
+from sfm_tpu.utils import checkpoint as jcheckpoint
 from sfm_tpu_torch import cli, config, interop
 from sfm_tpu_torch.io import image_io
-from sfm_tpu_torch.models import two_view
+from sfm_tpu_torch.models import incremental, two_view
+from sfm_tpu_torch.utils import checkpoint
 from sfm_tpu_torch.sift import frontend, match
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -176,8 +180,62 @@ def test_cli_sift_nine_octaves_over_16384_slots_on_cpu(tmp_path):
     assert 0 < json.loads(pathlib.Path(js).read_text())["features"][0] <= 2 * 2560
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "2"], ["--distributed"],
-                                   ["--checkpoint", "map.npz"], ["third.pgm"]])
+def test_cli_reconstruct_three_images_on_cpu_equals_run_incremental(tmp_path, capsys):
+    """3 frames of the arc sequence: the JAX CLI's incremental metrics
+    keys (and the port's device), a PLY of num_points vertices and a
+    map checkpoint that both packages load, equal to a direct
+    run_incremental at the same configuration and seed."""
+    seq = synthetic_sequence(144, 176, n_frames=3)
+    paths = write_pgms(str(tmp_path), seq["images"])
+    ply, js, npz = (str(tmp_path / n) for n in ("c.ply", "m.json", "map.npz"))
+    f = float(seq["K"][0, 0])
+    rc = cli.main(["reconstruct", *paths, "--focal", str(f), *_SMALL,
+                   "--ransac-hyps", "256", "--ba-iters", "6", "--closure", "0,2",
+                   "--seed", "1", "--out", ply, "--metrics", js, "--checkpoint", npz,
+                   "--device", "cpu"])
+    assert rc == 0
+    m = json.loads(pathlib.Path(js).read_text())
+    assert json.loads(capsys.readouterr().out) == m
+    assert set(m) == {"mode", "device", "num_images", "poses_registered",
+                      "num_points", "mean_reproj_px", "ba_cost_initial",
+                      "ba_cost_final", "ply", "checkpoint", "stage_times"}
+    assert m["mode"] == "incremental" and m["device"] == "cpu" and m["num_images"] == 3
+    assert m["poses_registered"] == 3 and m["num_points"] > 200
+    assert m["ba_cost_final"] < m["ba_cost_initial"] and m["mean_reproj_px"] < 0.5
+    head = pathlib.Path(ply).read_bytes()[:300]
+    assert f"element vertex {m['num_points']}\n".encode() in head
+    cfg = config.PipelineConfig(
+        sift=config.SiftConfig(num_octaves=3, max_pts_per_octave=256),
+        ransac=config.RansacConfig(n_hyps=256, threshold=3e-6))
+    imgs = [torch.as_tensor(image_io.load_gray(p)) for p in paths]
+    res = incremental.run_incremental(imgs, seq["K"], cfg, seed=1, ba_iters=6,
+                                      closure_pairs=[(0, 2)])
+    assert m["num_points"] == int(res.state.X_valid.sum())
+    assert m["ba_cost_final"] == float(res.ba_costs[-1])
+    st, extra = checkpoint.load_map(npz)
+    assert extra == {"K": [[f, 0.0, 88.0], [0.0, f, 72.0], [0.0, 0.0, 1.0]]}
+    for a, b in zip(st, res.state):
+        assert torch.equal(a, b)
+    sj, _ = jcheckpoint.load_map(npz)
+    assert type(sj).__module__ == "sfm_tpu.models.incremental"
+    assert np.asarray(sj.point_id).dtype == np.int32
+    np.testing.assert_array_equal(np.asarray(sj.point_id), res.state.point_id.numpy())
+
+
+def test_cli_two_images_write_no_checkpoint(pgm_pair, tmp_path):
+    """A two-view run has no map state: like the JAX CLI, --checkpoint
+    writes nothing and is not reported."""
+    paths, pair = pgm_pair
+    npz, js = tmp_path / "map.npz", str(tmp_path / "m.json")
+    rc = cli.main(["reconstruct", *paths, "--focal", str(float(pair["K"][0, 0])),
+                   *_SMALL, "--ransac-hyps", "128", "--checkpoint", str(npz),
+                   "--metrics", js, "--device", "cpu"])
+    assert rc == 0 and not npz.exists()
+    m = json.loads(pathlib.Path(js).read_text())
+    assert m["mode"] == "two_view" and "checkpoint" not in m
+
+
+@pytest.mark.parametrize("extra", [["--mesh", "2"], ["--distributed"]])
 def test_cli_refuses_what_is_not_ported(pgm_pair, extra):
     paths, _ = pgm_pair
     with pytest.raises(NotImplementedError):
