@@ -82,12 +82,28 @@ Phases, each of which fails the run on any error:
    solver ``run_ba``'s "auto" picks must end within 1e-3 of float64).  Its
    kernels run at the bench path's shapes (the same image size and
    SIFT configuration), where phase 3 holds them;
-10. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
+10. the turntable ring: ``tests/synthetic_ring.py``'s 36 frames of 576
+   x 720 (a textured box on a turning disc, 10 degrees per frame,
+   radial distortion k1 = -0.45) written as ``viff.000.ppm`` ...
+   ``viff.036.ppm``, and the driver users run, ``python -m
+   sfm_tpu_torch.tools.reconstruct_dino --dir DIR --turntable`` (its
+   ``main`` in-process), at its defaults: 512 points per octave, 1,024
+   hypotheses, 30 BA iterations; gated on r5's bar against the rendered
+   ring (mean step within 0.2 degrees of 10, std <= 0.3, 360 +- 2
+   degrees in all, <= 1.5 px) and against the JAX package's run on the
+   same files (px, tracks, kept observations, f, k1's sign, rotation
+   errors against the rendered poses), its PLY against its metrics,
+   K1-K5 once per frame and K6 once per chain pair and ring pair; ms per
+   frame by stage; then ``run_ba``'s dense LU and CG on the run's own
+   free-BA stage (dumped by ``SFM_TPU_TT_DUMP``, no camera fixed)
+   against a float64 CPU solve;
+11. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
    names a directory holding ``viff.000.ppm`` and ``viff.001.ppm``
-   (bench.py's fixture); skipped, and said so, when it is unset or the
-   files are absent.
+   (bench.py's fixture), and the driver's ``--turntable`` run on r5's
+   bar where it holds the 36 ring frames; skipped, and said so, when it
+   is unset or the files are absent.
 
-Each of the main paths (phases 4 to 9) runs with every launch count set
+Each of the main paths (phases 4 to 10) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
 it goes through, the base chain exactly once per image and K3 once per
 image and 8 octaves it extracts, K6 once per matched pair on the
@@ -192,6 +208,31 @@ JAX_SEQUENCE = {
                "rot_max_deg": 0.013636028924477822},
 }
 
+# The ring phase: tools/reconstruct_dino.py --turntable at its defaults
+# on synthetic_ring(576, 720) written as its 37 files, run by the JAX
+# package on the CPU (tests/jax_cli_reference.py --parts turntable: the
+# same files, run_incremental then reconstruct_turntable): 36/36 chain
+# poses collapsed to 1.35 degrees per step, then 10.0071 +- 0.1150
+# degrees per step, 360.102 in all, 1.0201 px over 26,469 of 33,380
+# observations of 6,639 tracks, f 2374.56 px (2360 rendered), k1 -1.603
+# (-0.45 rendered: f and k1 trade off in the 17-degree field of view;
+# only the sign is held), rotation error against the rendered poses
+# median 0.4425 / max 1.0128 degrees.  The port must meet r5's bar
+# (RING_BAR) against the rendered ring, reach px <= JAX / 0.9, 90% of
+# JAX's tracks and kept observations, f within 1% of JAX's, k1 < 0, and
+# rotation errors <= 3x JAX's.
+RING_FRAMES = 36
+RING_PAIRS = 2 * RING_FRAMES   # build_tracks' ring pairs at gaps (1, 2), wrapped
+JAX_RING = {"rms_px": 1.02013099193573, "tracks": 6639, "obs_kept": 26469,
+            "f_px": 2374.55615234375, "k1": -1.6031674146652222,
+            "step_mean": 10.007133483886719, "step_std": 0.11496232450008392,
+            "total_deg": 360.1022044512639, "rot_median_deg": 0.4425427308473272,
+            "rot_max_deg": 1.0128416350191813}
+# r5's bar on the dino ring (NOTES_R5.md: 9.998 +- 0.108 degrees per
+# step, 360.05 in all, 1.199 px): |mean step - 10| <= 0.2, std <= 0.3,
+# |total - 360| <= 2, rms <= 1.5 px.
+RING_BAR = {"step_mean": 0.2, "step_std": 0.3, "total_deg": 2.0, "rms_px": 1.5}
+
 # One NVIDIA H100 SXM (NVIDIA's data sheet; dense rates at 700 W): the
 # least time a kernel could take is the larger of its bytes over the
 # memory rate and its operations over the peak rate for their type.
@@ -236,22 +277,25 @@ def sequence_matches(n_frames: int, closures: int = 0) -> int:
     return 1 + sum(min(i, N_BACK) for i in range(2, n_frames)) + closures
 
 
-# Images each main path extracts (phases 4 to 9): 16 bench images; 2
+# Images each main path extracts (phases 4 to 10): 16 bench images; 2
 # up-scale, 1 module-API, 2 window and 2 gated images; the CLI's 16
 # reconstruct images, then 3 sift runs of 2 images, the last with 9
-# octaves; the sequence's 12 frames twice.  The base chain launches once
+# octaves; the sequence's 12 frames twice; the ring's 36 frames.  The base chain launches once
 # per image, K3 once per image and 8 octaves.
 PATH_CHAIN = {"bench": 16, "upscale": 2, "module_api": 1, "upscale_window": 2,
-              "upscale_lowest": 2, "cli": 16 + 4 + 2, "sequence": 2 * SEQ_FRAMES}
+              "upscale_lowest": 2, "cli": 16 + 4 + 2, "sequence": 2 * SEQ_FRAMES,
+              "ring": RING_FRAMES}
 PATH_K3 = {"bench": k3_launches(16), "upscale": k3_launches(2),
            "module_api": k3_launches(1), "upscale_window": k3_launches(2),
            "upscale_lowest": k3_launches(2),
            "cli": k3_launches(16) + k3_launches(4) + k3_launches(2, 9),
-           "sequence": k3_launches(2 * SEQ_FRAMES)}
-# K6 launches where a path fixes them: the sequence's matcher calls.
+           "sequence": k3_launches(2 * SEQ_FRAMES), "ring": k3_launches(RING_FRAMES)}
+# K6 launches where a path fixes them: the sequence's matcher calls; the
+# ring's chain matches, then one per ring pair in build_tracks.
 PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
-           + sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES))}
-# Kernels each main path must launch (phases 4 to 9).
+           + sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES)),
+           "ring": sequence_matches(RING_FRAMES) + RING_PAIRS}
+# Kernels each main path must launch (phases 4 to 10).
 _BASE = {"base_chain", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
     "bench": _BASE | {"fused_orient_descriptor", "match_top2"},
@@ -262,6 +306,7 @@ PATH_KERNELS = {
     "upscale_lowest": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "sequence": _BASE | {"fused_orient_descriptor", "match_top2"},
+    "ring": _BASE | {"fused_orient_descriptor", "match_top2"},
 }
 
 
@@ -1390,15 +1435,18 @@ def cli_phase(pair, rpair, gates, dev, card):
 
 
 @contextlib.contextmanager
-def spy(module, name):
-    """Record (args, kwargs, result) of each call of ``module.name``
-    inside the block; the function itself is restored after it."""
+def spy(module, name, **extra):
+    """Record (args, kwargs, result, the launch counts after it) of each
+    call of ``module.name`` inside the block, passing it ``extra``
+    keyword arguments too; the function itself is restored after it."""
+    from sfm_tpu_torch.ops import _cuda
+
     fn = getattr(module, name)
     calls = []
 
     def wrapped(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        calls.append((args, kwargs, out))
+        out = fn(*args, **kwargs, **extra)
+        calls.append((args, kwargs, out, dict(_cuda.LAUNCHES)))
         return out
 
     setattr(module, name, wrapped)
@@ -1434,7 +1482,7 @@ def gate_sequence(r, ref, gates, where):
                 f"{r['ba_cost_final']:.6g})")
 
 
-def solver_ab(R, t, X, problem, iters):
+def solver_ab(R, t, X, problem, iters, huber_delta=3e-3):
     """One BA problem solved by run_ba's dense LU and its CG on the card,
     against a float64 dense solve on the CPU: final costs, the relative
     gap to float64, and ms per LM iteration (CUDA events around whole
@@ -1450,19 +1498,20 @@ def solver_ab(R, t, X, problem, iters):
     t0 = time.perf_counter()
     ref, ref_costs = ba.run_ba(f64(R), f64(t), f64(X),
                                ba.BAProblem(*map(f64, problem)), iters=iters,
-                               solver="dense")
+                               huber_delta=huber_delta, solver="dense")
     c_ref = float(ref_costs[-1])
     out = {"cameras": M, "points": P, "fixed_cameras": int(problem.fixed.sum()),
            "observation_slots": problem.mask.shape[0],
            "observations": int(problem.mask.sum()), "iters": iters,
+           "huber_delta": huber_delta,
            "auto": ba.resolve_solver("auto", M, P),
            "cpu_float64_dense": {"cost_initial": float(ref_costs[0]),
                                  "cost_final": c_ref,
                                  "seconds": time.perf_counter() - t0}}
     for solver in ("dense", "cg"):
-        ms = cuda_ms(lambda: ba.run_ba(R, t, X, problem, iters=iters, solver=solver),
-                     reps=3, warmup=1)
-        fin, costs = ba.run_ba(R, t, X, problem, iters=iters, solver=solver)
+        kw = dict(iters=iters, huber_delta=huber_delta, solver=solver)
+        ms = cuda_ms(lambda: ba.run_ba(R, t, X, problem, **kw), reps=3, warmup=1)
+        fin, costs = ba.run_ba(R, t, X, problem, **kw)
         c = float(costs[-1])
         out[solver] = {"cost_initial": float(costs[0]), "cost_final": c,
                        "gap_to_float64": (c - c_ref) / c_ref, "ms_per_iter": ms / iters,
@@ -1605,6 +1654,15 @@ def sequence_phase(gates, dev, card):
     # The BA solver A/B on (b)'s global problem, after the counts were read.
     g_args = gcalls[0][0]
     ab = ba_solver_ab(*g_args[:4], iters=20, dev=dev)
+    log_solver_ab(ab, gates, card)
+    return {"cli": a, "module": b, "ba_solver_ab": ab,
+            "launches_cli": launches_a}, launches
+
+
+def log_solver_ab(ab, gates, card):
+    """Log each problem's solver A/B; gate every solve on a falling,
+    finite cost and run_ba's "auto" choice on ending within 1e-3 of the
+    float64 cost."""
     for name, p in ab.items():
         ref = p["cpu_float64_dense"]
         log(f"BA solver A/B, {name}: {p['cameras']} cameras "
@@ -1624,12 +1682,181 @@ def sequence_phase(gates, dev, card):
         gap = p[p["auto"]]["gap_to_float64"]
         gates.check(abs(gap) <= 1e-3, f"BA A/B {name}: run_ba's auto solver "
                     f"({p['auto']}) ends {gap:+.3e} from the float64 cost")
-    return {"cli": a, "module": b, "ba_solver_ab": ab,
-            "launches_cli": launches_a}, launches
+
+
+@contextlib.contextmanager
+def timed(module, name, timer, stage, dev):
+    """Record the synchronized wall time of each call of ``module.name``
+    inside the block under ``stage``, in a profiler range of that name."""
+    import torch
+
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(stage):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            timer.record(stage, time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """Set the environment variable ``name`` inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def run_turntable_driver(d, out, timer=None, dump=None):
+    """``python -m sfm_tpu_torch.tools.reconstruct_dino --dir d --turntable
+    --out out`` in-process, its stdout swallowed; ``timer`` records ms by
+    stage (extract, then run_incremental's and reconstruct_turntable's
+    stages), ``dump`` sets SFM_TPU_TT_DUMP.  Returns (exit code,
+    metrics, PLY vertices, the TurntableResult, launches after the chain,
+    ms)."""
+    import io
+
+    import torch
+
+    from sfm_tpu_torch.models import incremental, turntable
+    from sfm_tpu_torch.sift import frontend
+    from sfm_tpu_torch.tools import reconstruct_dino
+
+    extra = {} if timer is None else {"timer": timer}
+    with contextlib.ExitStack() as stack:
+        if timer is not None:
+            stack.enter_context(timed(frontend, "extract_sift", timer, "extract",
+                                      torch.device("cuda", 0)))
+        if dump is not None:
+            stack.enter_context(env("SFM_TPU_TT_DUMP", dump))
+        chain = stack.enter_context(spy(incremental, "run_incremental", **extra))
+        ring = stack.enter_context(spy(turntable, "reconstruct_turntable", **extra))
+        stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = reconstruct_dino.main(["--dir", d, "--turntable", "--out", out])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    with open(out + ".metrics.json") as fh:
+        m = json.load(fh)
+    return rc, m, _ply_vertices(out + ".ply"), ring[0][2], chain[0][3], ms
+
+
+def gate_ring_bar(m, gates, where):
+    """r5's bar (RING_BAR) on the driver's metrics."""
+    gates.check(abs(m["tt_step_deg_mean"] - 10.0) <= RING_BAR["step_mean"],
+                f"{where}: mean step {m['tt_step_deg_mean']:.4f} deg")
+    gates.check(m["tt_step_deg_std"] <= RING_BAR["step_std"],
+                f"{where}: step std {m['tt_step_deg_std']:.4f} deg")
+    gates.check(abs(m["tt_total_deg"] - 360.0) <= RING_BAR["total_deg"],
+                f"{where}: total {m['tt_total_deg']} deg")
+    gates.check(m["tt_rms_px"] <= RING_BAR["rms_px"], f"{where}: {m['tt_rms_px']} px")
+    gates.check(m["poses_valid"] == m["frames"],
+                f"{where}: {m['poses_valid']} of {m['frames']} poses")
+
+
+def ring_phase(gates, dev, card):
+    """Phase 10: the turntable driver on the synthetic ring (36 frames of
+    576 x 720, k1 = -0.45), gated on r5's bar, against the JAX package's
+    run on the same files and against the rendered poses; ms per frame
+    by stage; then the free-BA solver A/B on the run's own dump.
+    Returns (result, launches of the run)."""
+    import tempfile
+
+    import numpy as np
+
+    from sfm_tpu_torch.models import turntable
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.utils import metrics
+    from sfm_tpu_torch.utils.timing import StageTimer
+    from synthetic_ring import synthetic_ring
+    from synthetic_sequence import nearest_rotations
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ring = synthetic_ring(576, 720, n_frames=RING_FRAMES, directory=d)
+        log(f"ring: {RING_FRAMES} frames of 576 x 720 (+ viff.{RING_FRAMES:03d}.ppm) "
+            f"rendered and written in {time.perf_counter() - t0:.1f} s")
+        timer = StageTimer()
+        dump = os.path.join(d, "free_ba.npz")
+        _cuda.reset_launches()
+        rc, m, vertices, ttr, after_chain, ms = run_turntable_driver(
+            d, os.path.join(d, "ring"), timer=timer, dump=dump)
+        launches = dict(_cuda.LAUNCHES)
+        R, t, X, problem, delta = turntable.free_ba_problem(dump, dev)
+    rot = metrics.rotation_errors_deg(nearest_rotations(ttr.R.cpu().numpy()), ring["R"])
+    sd = ttr.step_deg.numpy()
+    r = {"rc": rc, "poses": m["poses_valid"], "step_mean": float(sd.mean()),
+         "step_std": float(sd.std()), "total_deg": ttr.total_deg, "rms_px": ttr.rms_px,
+         "f_px": ttr.f, "k1": ttr.k1, "k2": ttr.k2, "tracks": ttr.tracks.n_tracks,
+         "obs": int(ttr.tracks.cam_idx.shape[0]), "obs_kept": int(ttr.keep.sum()),
+         "rot_median_deg": float(np.median(rot)), "rot_max_deg": float(rot.max()),
+         "n_points": m["n_points"], "ply_vertices": vertices, "metrics": m, "ms": ms,
+         "k6_chain": after_chain["match_top2"],
+         "k6_tracks": launches["match_top2"] - after_chain["match_top2"],
+         "stage_ms": {k: v["total_ms"] for k, v in timer.summary().items()}}
+    r["stage_ms_per_frame"] = {k: v / RING_FRAMES for k, v in r["stage_ms"].items()}
+    log(f"ring driver --turntable: {r['poses']} poses, step {r['step_mean']:.4f} +- "
+        f"{r['step_std']:.4f} deg, total {r['total_deg']:.3f} deg, {r['rms_px']:.4f} px "
+        f"over {r['obs_kept']} of {r['obs']} observations of {r['tracks']} tracks, f "
+        f"{r['f_px']:.2f} px, k1 {r['k1']:.4f}; rotation error median "
+        f"{r['rot_median_deg']:.4f} max {r['rot_max_deg']:.4f} deg; PLY {vertices} "
+        f"vertices; {ms:.0f} ms (host clock, {card})")
+    per = ", ".join(f"{k} {v:.2f}" for k, v in r["stage_ms_per_frame"].items())
+    log(f"ring ms per frame (host clock around synchronized stages, {card}): {per}")
+    log(f"launches in the ring run: {launches} (K6: chain {r['k6_chain']}, ring tracks "
+        f"{r['k6_tracks']})")
+    gates.check(rc == 0, f"ring driver: exit code {rc}")
+    gate_ring_bar(m, gates, "ring driver")
+    # The metrics JSON reports the result the run computed.
+    gates.check(m["tt_tracks"] == r["tracks"] and m["tt_obs_kept"] == r["obs_kept"]
+                and m["tt_rms_px"] == round(r["rms_px"], 3),
+                "ring driver: the metrics differ from the run's result")
+    gates.check(r["rms_px"] <= JAX_RING["rms_px"] / 0.9,
+                f"ring: {r['rms_px']:.4f} px > the JAX package's "
+                f"{JAX_RING['rms_px']:.4f} / 0.9")
+    for k in ("tracks", "obs_kept"):
+        gates.check(r[k] >= 0.9 * JAX_RING[k], f"ring: {k} {r[k]} < 90% of the JAX "
+                    f"package's {JAX_RING[k]}")
+    gates.check(abs(r["f_px"] - JAX_RING["f_px"]) <= 0.01 * JAX_RING["f_px"],
+                f"ring: f {r['f_px']:.2f} px, the JAX package's {JAX_RING['f_px']:.2f}")
+    gates.check(r["k1"] < 0, f"ring: k1 {r['k1']:.4f}, rendered {ring['k1']}")
+    for k in ("rot_median_deg", "rot_max_deg"):
+        gates.check(r[k] <= 3.0 * JAX_RING[k], f"ring: {k} {r[k]:.4f} > 3 x the JAX "
+                    f"package's {JAX_RING[k]:.4f}")
+    gates.check(vertices == m["ply_vertices"], f"ring: PLY holds {vertices} vertices, "
+                f"the metrics {m['ply_vertices']}")
+    gates.check(r["k6_chain"] == sequence_matches(RING_FRAMES),
+                f"ring: K6 launched {r['k6_chain']} times in the chain")
+    gates.check(r["k6_tracks"] == RING_PAIRS,
+                f"ring: K6 launched {r['k6_tracks']} times in build_tracks")
+    check_path_launches("ring", launches, gates)
+
+    # The free-BA stage's solver A/B (no camera fixed), after the counts.
+    ab = {"ring_free_ba": solver_ab(R, t, X, problem, 30, huber_delta=delta)}
+    log_solver_ab(ab, gates, card)
+    r["ba_solver_ab"] = ab
+    return r, launches
 
 
 def dino(cfg, gates, dev):
-    """Phase 10: bench.py's gates on the dino pair, where present."""
+    """Phase 11: bench.py's gates on the dino pair, and r5's bar on the
+    driver's --turntable run of its 36 ring frames, where present."""
     import torch
 
     d = os.environ.get("SFM_DINO_DIR")
@@ -1642,6 +1869,21 @@ def dino(cfg, gates, dev):
         return None
     from sfm_tpu_torch.io.image_io import load_gray
 
+    ring = None
+    if all(os.path.exists(os.path.join(d, f"viff.{i:03d}.ppm")) for i in range(36)):
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as out:
+            rc, m, vertices, _, _, ms = run_turntable_driver(d, os.path.join(out, "dino"))
+        log(f"dino --turntable: {m['poses_valid']} poses, step {m['tt_step_deg_mean']:.4f}"
+            f" +- {m['tt_step_deg_std']:.4f} deg, total {m['tt_total_deg']} deg, "
+            f"{m['tt_rms_px']} px, f {m['tt_f_px']}, k1 {m['tt_k1']}; {ms:.0f} ms")
+        gates.check(rc == 0, f"dino --turntable: exit code {rc}")
+        gate_ring_bar(m, gates, "dino --turntable")
+        gates.check(vertices == m["ply_vertices"], "dino --turntable: PLY vertices")
+        ring = {"metrics": m, "ms": ms}
+    else:
+        log(f"dino ring (viff.000-035.ppm) absent in {d}: --turntable skipped")
     img1 = torch.as_tensor(load_gray(p1), device=dev)
     img2 = torch.as_tensor(load_gray(p2), device=dev)
     h, w = img1.shape
@@ -1658,7 +1900,7 @@ def dino(cfg, gates, dev):
         gates.check(r["valid"] >= 900, f"dino seed {r['seed']} valid {r['valid']}")
         gates.check(r["px"] <= 0.75, f"dino seed {r['seed']} px {r['px']}")
         r.pop("R"), r.pop("t")
-    return {"median": med, "seeds": rows}
+    return {"median": med, "seeds": rows, "turntable": ring}
 
 
 def main() -> int:
@@ -1707,6 +1949,7 @@ def main() -> int:
     launches["upscale_window"] = win["launches"]
     cli_res, launches["cli"] = cli_phase(pair, rpair, gates, dev, card)
     seq_res, launches["sequence"] = sequence_phase(gates, dev, card)
+    ring_res, launches["ring"] = ring_phase(gates, dev, card)
     # One record per kernel: the largest error over every shape it was
     # held at; times and bounds at the bench path's shapes (K7's at the
     # up-scale path's, K8's at the module API's, the only main path that
@@ -1730,6 +1973,7 @@ def main() -> int:
                    "k3_nine_octaves": nine, "k3_past_13_planes": wide,
                    "base_chain_odd_and_9_levels": odd, "module_api": api,
                    "upscale_window": win, "cli": cli_res, "sequence": seq_res,
+                   "ring": ring_res,
                    "dino": dino_res,
                    "gate_failures": gates.failures}, fh, indent=1, default=float)
     if gates.failures:

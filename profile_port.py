@@ -6,6 +6,7 @@ Run from the repository root on a machine with an NVIDIA card:
 
     python3 profile_port.py [--pairs 5] [--tvote-rounds N]
     python3 profile_port.py --sequence
+    python3 profile_port.py --ring
 
 Drives ``sfm_tpu_torch`` with ``chip_smoke.py``'s ``slice_config``
 (bench.py's own config; ``--tvote-rounds`` sets its translation re-vote
@@ -28,6 +29,15 @@ each ending in a synchronize), then one profiled run's kernel launches
 and device ms per stage and per registered frame, and the same
 run's ms per frame with ``torch.use_deterministic_algorithms(True)``;
 a JSON summary goes to ``chiprun_out/profile_port_sequence.json``.
+
+``--ring`` drives the turntable driver (``python -m
+sfm_tpu_torch.tools.reconstruct_dino --turntable``) on ``chip_smoke.py``'s
+ring phase (36 frames of ``tests/synthetic_ring.py``): the host-clock
+ms per frame of each stage (extract, the chain's stages, then tracks,
+pinned_lm, free_ba, snap), twice; then ``reconstruct_turntable`` alone,
+profiled on the captured chain and features: its kernel launches and
+device ms per stage; a JSON summary goes to
+``chiprun_out/profile_port_ring.json``.
 """
 
 from __future__ import annotations
@@ -147,6 +157,65 @@ def sequence(card) -> int:
     return 0
 
 
+def ring(card) -> int:
+    """The turntable path's stage times and the turntable stages' device
+    profile (module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import RING_FRAMES, run_turntable_driver, spy
+    from sfm_tpu_torch.models import turntable
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.utils.timing import StageTimer
+    from synthetic_ring import synthetic_ring
+
+    _cuda.library()
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        synthetic_ring(576, 720, n_frames=RING_FRAMES, directory=d)
+        for _ in range(2):
+            timer = StageTimer()
+            with spy(turntable, "reconstruct_turntable") as calls:
+                rc, m, _, _, _, wall = run_turntable_driver(d, os.path.join(d, "r"),
+                                                            timer=timer)
+            per_frame = {k: v["total_ms"] / RING_FRAMES
+                         for k, v in timer.summary().items()}
+            runs.append({"rc": rc, "wall_ms": wall, "stage_ms_per_frame": per_frame,
+                         "step_deg_mean": m["tt_step_deg_mean"], "rms_px": m["tt_rms_px"]})
+            print(f"card: {card}; ring run: rc {rc}, {wall:.0f} ms = "
+                  f"{wall / RING_FRAMES:.1f} per frame, step {m['tt_step_deg_mean']:.4f} "
+                  f"+- {m['tt_step_deg_std']:.4f} deg, {m['tt_rms_px']} px")
+            for k, v in per_frame.items():
+                print(f"  {k:10s} {v:9.2f} ms per frame")
+    args, kwargs = calls[0][0], calls[0][1]
+    stages = ("tracks", "pinned_lm", "free_ba", "snap")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        turntable.reconstruct_turntable(*args, **{**kwargs, "timer": StageTimer()})
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kern, by_stage = kernels_by_stage(prof, stages)
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    print(f"profiled reconstruct_turntable: wall {prof_wall:.1f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / prof_wall:.1f}%), {len(kern)} kernels")
+    for k, (cnt, ms) in by_stage.items():
+        print(f"  {k:10s} {cnt:7d} kernels ({cnt / RING_FRAMES:8.1f} per frame)  "
+              f"{ms:9.3f} ms device ({ms / RING_FRAMES:7.3f} per frame)")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "profile_port_ring.json"), "w") as fh:
+        json.dump({"card": card, "frames": RING_FRAMES, "runs": runs,
+                   "turntable_profiled_wall_ms": prof_wall, "device_busy_ms": busy,
+                   "kernel_launches": len(kern), "by_stage": by_stage},
+                  fh, indent=1, default=float)
+    return 0 if all(r["rc"] == 0 for r in runs) and np.isfinite(busy) else 1
+
+
 def main() -> int:
     import torch
 
@@ -158,10 +227,14 @@ def main() -> int:
     ap.add_argument("--tvote-rounds", type=int, default=0)
     ap.add_argument("--sequence", action="store_true",
                     help="profile run_incremental on the 12-frame sequence")
+    ap.add_argument("--ring", action="store_true",
+                    help="profile the turntable driver on the 36-frame ring")
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     if args.sequence:
         return sequence(card_line())
+    if args.ring:
+        return ring(card_line())
     from sfm_tpu_torch.models import two_view
     from sfm_tpu_torch.ops import _cuda
     from sfm_tpu_torch.sift import frontend

@@ -70,6 +70,55 @@ def load_gray(path) -> np.ndarray:
         return np.asarray(im.convert("F"), dtype=np.float32)
 
 
+def iter_gray_frames(paths, depth: int = 4, n_threads: int = 0):
+    """Yield (index, [H, W] f32) frames in order with decode-ahead.
+
+    Native path: the C++ worker pool decoding ``depth`` frames ahead of
+    the consumer (native/sfm_io.cpp ``sfm_prefetch_*``), when every file
+    is a binary PNM and the library is built.  Otherwise a
+    ThreadPoolExecutor with a bounded window of in-flight decodes.
+    """
+    paths = [str(p) for p in paths]
+
+    def _all_pnm():
+        # The native decoder handles PNM only; anything else (PNG / JPG,
+        # which load_gray routes to PIL) takes the Python path, so the
+        # behaviour does not depend on whether the toolchain is present.
+        try:
+            for p in paths:
+                with open(p, "rb") as f:
+                    if f.read(2) not in (b"P5", b"P6"):
+                        return False
+        except OSError:
+            return False
+        return True
+
+    pf = None
+    try:
+        from sfm_tpu_torch.io import native as _native
+
+        if _all_pnm() and _native.available():
+            pf = _native.FramePrefetcher(paths, depth=depth, n_threads=n_threads)
+    except (RuntimeError, ValueError):
+        pf = None  # open-time failure only: fall back before any yield
+    if pf is not None:
+        with pf:
+            yield from pf
+        return
+    import concurrent.futures as _cf
+
+    if depth <= 0:
+        depth = 4
+    with _cf.ThreadPoolExecutor(max_workers=max(1, min(depth, 8))) as ex:
+        pending = {}
+        nxt = 0
+        for i, p in enumerate(paths):
+            pending[i] = ex.submit(load_gray, p)
+            while len(pending) >= depth or (i == len(paths) - 1 and pending):
+                yield nxt, pending.pop(nxt).result()
+                nxt += 1
+
+
 def save_ply(path, points, valid=None):
     """Write a PLY point cloud of the valid points (replaces the GL
     viewer output).

@@ -51,6 +51,19 @@ def _load():
         ctypes.c_char_p, ctypes.c_long,
     ]
     lib.sfm_write_ply.restype = ctypes.c_long
+    lib.sfm_prefetch_open.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_long),
+        ctypes.POINTER(ctypes.c_long),
+    ]
+    lib.sfm_prefetch_open.restype = ctypes.c_void_p
+    lib.sfm_prefetch_next.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_long),
+    ]
+    lib.sfm_prefetch_next.restype = ctypes.c_int
+    lib.sfm_prefetch_close.argtypes = [ctypes.c_void_p]
+    lib.sfm_prefetch_close.restype = None
     _lib = lib
     return _lib
 
@@ -80,6 +93,63 @@ def load_gray_batch(paths, n_threads: int = 0) -> np.ndarray:
     if ok != n:
         raise ValueError(f"decoded {ok}/{n} images")
     return out
+
+
+class FramePrefetcher:
+    """Decode-ahead frame stream over the native worker pool.
+
+    Iterates (index, [H, W] f32) in path order while ``depth`` frames
+    are decoded ahead by native threads, so frame decode overlaps the
+    card's work on the previous frame.  Use as a context manager or
+    iterator; ``image_io.iter_gray_frames`` adds the pure-Python
+    fallback.
+    """
+
+    def __init__(self, paths, depth: int = 4, n_threads: int = 0):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native io unavailable")
+        self._lib = lib
+        self._paths = [str(p) for p in paths]
+        n = len(self._paths)
+        self._arr = (ctypes.c_char_p * n)(*[p.encode() for p in self._paths])
+        w = ctypes.c_long()
+        h = ctypes.c_long()
+        self._handle = lib.sfm_prefetch_open(
+            self._arr, n, depth, n_threads, ctypes.byref(w), ctypes.byref(h))
+        if not self._handle:
+            raise ValueError(f"cannot parse PNM header: {self._paths[0]}")
+        self.w = w.value
+        self.h = h.value
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._handle is None:
+            raise StopIteration
+        out = np.empty((self.h, self.w), np.float32)
+        idx = ctypes.c_long()
+        rc = self._lib.sfm_prefetch_next(
+            self._handle, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            ctypes.byref(idx))
+        if rc == 1:
+            self.close()
+            raise StopIteration
+        if rc != 0:
+            raise ValueError(f"decode failed: {self._paths[idx.value]}")
+        return idx.value, out
+
+    def close(self):
+        if self._handle is not None:
+            self._lib.sfm_prefetch_close(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def save_ply(path, points, valid=None) -> int:

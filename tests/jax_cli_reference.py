@@ -5,7 +5,7 @@ port against, measured on the CPU (JAX's CPU route).
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python3 tests/jax_cli_reference.py \\
-        [--seeds 8] [--parts reconstruct,default,sift,upscale,incremental]
+        [--seeds 8] [--parts reconstruct,default,sift,upscale,incremental,turntable]
 
 Parts, each printing one JSON line per run:
 
@@ -37,7 +37,18 @@ Parts, each printing one JSON line per run:
   registered, points, reprojection px, the BA costs, and the
   Sim(3)-aligned ATE and the median and largest rotation error of the
   registered poses (projected onto SO(3) in float64,
-  ``synthetic_sequence.nearest_rotations``) against the rendered ones.
+  ``synthetic_sequence.nearest_rotations``) against the rendered ones;
+- ``turntable``: ``synthetic_ring(576, 720)`` (36 frames of a turntable
+  with k1 = -0.45, ``tests/synthetic_ring.py``) written as its 37
+  ``viff.NNN.ppm`` files and read back, then what
+  ``tools/reconstruct_dino.py --turntable`` computes at its defaults
+  (512 points per octave, 1,024 hypotheses at 3e-6, chunk 256, 30 BA
+  iterations, seed 0, f = 2360 at the frame centre): ``run_incremental``
+  on the 36 frames, then ``reconstruct_turntable`` from its chain; the
+  tool's metrics (the ``tt_*`` keys, steps, total, circle fit, the
+  far-field-filtered PLY count), the per-step spread, and the median
+  and largest rotation error of the final poses against the rendered
+  ones (projected onto SO(3) first).
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ sys.path[:0] = [os.path.dirname(HERE), HERE]
 from synthetic_pair import (homography_grid_errors, pose_errors_deg,  # noqa: E402
                             rotation_pair, synthetic_pair, transfer_px, write_pgm)
 
-PARTS = ("reconstruct", "default", "sift", "upscale", "incremental")
+PARTS = ("reconstruct", "default", "sift", "upscale", "incremental", "turntable")
 
 
 def reconstruct(d, seeds):
@@ -227,6 +238,64 @@ def incremental(d):
         "seconds": time.perf_counter() - t0}}), flush=True)
 
 
+def turntable(d):
+    import time
+
+    import jax.numpy as jnp
+
+    from sfm_tpu.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu.io.image_io import load_gray
+    from sfm_tpu.models import incremental as inc
+    from sfm_tpu.models import turntable as tt
+    from sfm_tpu.sift import frontend
+    from sfm_tpu.utils import metrics
+    from synthetic_ring import synthetic_ring
+    from synthetic_sequence import nearest_rotations
+    sys.path.insert(0, os.path.join(os.path.dirname(HERE), "tools"))
+    from reconstruct_dino import circle_fit_metrics
+
+    t0 = time.perf_counter()
+    ring = synthetic_ring(576, 720, directory=d)
+    render_s = time.perf_counter() - t0
+    n = len(ring["images"])
+    cfg = PipelineConfig(sift=SiftConfig(max_pts_per_octave=512),
+                         ransac=RansacConfig(n_hyps=1024, threshold=3e-6, chunk=256))
+    imgs = [jnp.asarray(load_gray(p)) for p in ring["paths"][:n]]
+    h, w = imgs[0].shape
+    K = np.array([[2360.0, 0, w / 2], [0, 2360.0, h / 2], [0, 0, 1]], np.float32)
+    t0 = time.perf_counter()
+    feats = [frontend.extract_sift(im, cfg.sift) for im in imgs]
+    res = inc.run_incremental(imgs, K, cfg, ba_iters=30, seed=0, feats=feats)
+    st = res.state
+    t_chain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ttr = tt.reconstruct_turntable(feats, st.R, st.t, K, cfg,
+                                   pose_valid=st.pose_valid)
+    t_tt = time.perf_counter() - t0
+    R, t, X = np.asarray(ttr.R), np.asarray(ttr.t), np.asarray(ttr.X)
+    sd = np.asarray(ttr.step_deg)
+    keep = np.asarray(ttr.keep)
+    tv = np.zeros((X.shape[0],), bool)
+    np.logical_or.at(tv, np.asarray(ttr.tracks.pt_idx), keep)
+    med = np.median(np.abs(X[tv]), axis=0)
+    ply = int((tv & (np.abs(X) < 20 * (med + 1e-6)).all(1)).sum())
+    rot = metrics.rotation_errors_deg(nearest_rotations(R), ring["R"])
+    print(json.dumps({"jax_turntable": {
+        "frames": n, "chain_poses_registered": int(np.asarray(st.pose_valid).sum()),
+        "chain_step_deg_mean": float(np.mean(tt._steps_deg_np(st.R))),
+        "tt_rms_px": ttr.rms_px, "tt_f_px": ttr.f, "tt_k1": ttr.k1, "tt_k2": ttr.k2,
+        "tt_tracks": int(ttr.tracks.n_tracks),
+        "tt_obs": int(len(np.asarray(ttr.tracks.cam_idx))),
+        "tt_obs_kept": int(keep.sum()), "tt_step_deg_mean": float(sd.mean()),
+        "tt_step_deg_std": float(sd.std()), "tt_step_deg_min": float(sd.min()),
+        "tt_step_deg_max": float(sd.max()), "tt_total_deg": ttr.total_deg,
+        "n_points": int(tv.sum()), "ply_vertices": ply,
+        **circle_fit_metrics(np.einsum("mji,mj->mi", R, -t)),
+        "rot_median_deg": float(np.median(rot)), "rot_max_deg": float(rot.max()),
+        "render_seconds": render_s, "chain_seconds": t_chain,
+        "turntable_seconds": t_tt}}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, default=8)
@@ -247,6 +316,8 @@ def main() -> int:
             upscale()
         if "incremental" in parts:
             incremental(d)
+        if "turntable" in parts:
+            turntable(d)
     return 0
 
 

@@ -662,3 +662,179 @@ def test_scatters_past_capacity_stay_in_range_on_cuda(dev):
     for a, b in zip(out["cpu"], out["cuda"]):
         assert torch.equal(a, b)
     assert int(out["cuda"][2]) == 40 and int((out["cuda"][7] >= 0).sum()) == 10
+
+
+def _ring_feats(frames, d):
+    from sfm_tpu_torch.sift.frontend import Keypoints, SiftResult
+
+    def T(a):
+        return torch.as_tensor(a, device=d)
+
+    out = []
+    for fr in frames:
+        ones = T(np.ones(len(fr["x"]), np.float32))
+        out.append(SiftResult(
+            keypoints=Keypoints(x=T(fr["x"]), y=T(fr["y"]), scale=ones, sharpness=ones,
+                                edgeness=ones, orientation=ones * 0,
+                                octave=T(np.zeros(len(fr["x"]), np.int64)),
+                                valid=T(fr["valid"])),
+            descriptors=T(fr["descriptors"])))
+    return out
+
+
+def _steps(R):
+    from sfm_tpu_torch.models.turntable import _steps_deg_np
+
+    return _steps_deg_np(R)
+
+
+def test_refine_turntable_on_cuda_matches_cpu(dev):
+    """The pinned LM with shared (f, k1) from the collapsed injected
+    ring's fitted model (``synthetic_ring.injected_ring``): the card's run
+    against the CPU's, steps to 1e-2 deg, rms and f to 1e-3 relative
+    (float atomics in the triangulation's segment sums), >= 99% equal
+    kept observations."""
+    from sfm_tpu_torch.models import tracks as tr, turntable as tt
+    from sfm_tpu_torch.config import PipelineConfig
+    from synthetic_ring import INJECTED_K, injected_ring
+
+    frames, Rc, tc, _, _ = injected_ring()
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        ts = tr.build_tracks(_ring_feats(frames, d), tr.ring_pairs(12, gaps=(1, 2)),
+                             PipelineConfig())
+        model = tt.fit_turntable(torch.as_tensor(Rc, device=d), torch.as_tensor(tc, device=d))
+        m, intr, R, t, X, keep, rms = tt.refine_turntable(
+            model, ts.cam_idx, ts.pt_idx, ts.uv_pix, ts.mask, INJECTED_K, n_frames=12,
+            n_points=ts.n_tracks, iters=12, tri_rounds=3)
+        assert R.device.type == d.type
+        out[d.type] = (_steps(R), float(rms), float(intr[0]), keep.cpu().numpy())
+    (sc, rc, fc, kc), (sg, rg, fg, kg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(sg, sc, atol=1e-2)
+    assert rg == pytest.approx(rc, rel=1e-3) and fg == pytest.approx(fc, rel=1e-3)
+    assert (kg == kc).mean() >= 0.99
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_reconstruct_turntable_on_cuda_matches_cpu(dev, tf32):
+    """The whole turntable path on the injected ring, on the card against
+    the CPU: tracks and observations >= 99% of the CPU's (K6's bf16
+    tensor-core sums may flip a near-cutoff ratio), steps to 0.02 deg,
+    total to 0.1 deg, rms to 2%, f to 0.1%, and the JAX package's own bar
+    (mean step within 0.2 deg, std < 0.3, 360 +- 2 deg, < 1.5 px).  With
+    TF32 turned on globally the entry points still pin it off: the same
+    steps, and the global flags are left as they were."""
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.models import turntable as tt
+    from synthetic_ring import INJECTED_K, injected_ring
+
+    frames, Rc, tc, _, _ = injected_ring()
+    out = {}
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for d in (torch.device("cpu"), dev):
+        if d.type == "cuda" and tf32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+        try:
+            r = tt.reconstruct_turntable(_ring_feats(frames, d), Rc, tc, INJECTED_K,
+                                         PipelineConfig(), pose_valid=np.ones(12, bool))
+            if d.type == "cuda" and tf32:
+                assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        assert r.R.device.type == d.type
+        out[d.type] = r
+    c, g = out["cpu"], out["cuda"]
+    assert g.tracks.n_tracks >= 0.99 * c.tracks.n_tracks
+    assert g.tracks.cam_idx.shape[0] >= 0.99 * c.tracks.cam_idx.shape[0]
+    assert int(g.keep.sum()) >= 0.99 * int(c.keep.sum())
+    sg, sc = g.step_deg.numpy(), c.step_deg.numpy()
+    np.testing.assert_allclose(sg, sc, atol=2e-2)
+    assert g.total_deg == pytest.approx(c.total_deg, abs=0.1)
+    assert g.rms_px == pytest.approx(c.rms_px, rel=2e-2)
+    assert g.f == pytest.approx(c.f, rel=1e-3)
+    assert abs(sg.mean() - 30.0) < 0.2 and sg.std() < 0.3
+    assert abs(g.total_deg - 360.0) < 2.0 and g.rms_px < 1.5
+
+
+def _distorted_orbit(rng, M=6, P=160, f=2800.0, k1=-0.28, noise_px=0.15):
+    """tests/test_calibrate.py's distorted orbit in numpy: M cameras 10
+    degrees apart around 160 points, pixel observations with k1, camera 0
+    fixed; the start perturbed as its joint test perturbs it."""
+    from helpers import rot
+
+    X = rng.uniform([-1, -1, -1], [1, 1, 1], size=(P, 3)).astype(np.float32)
+    Rs = [rot([0, 1, 0], np.radians(10.0) * i) for i in range(M)]
+    ts = [-Ri @ (Ri.T @ np.array([0.0, 0.0, -6.0])) for Ri in Rs]
+    R, t = np.stack(Rs).astype(np.float32), np.stack(ts).astype(np.float32)
+    cam, pt = np.repeat(np.arange(M), P), np.tile(np.arange(P), M)
+    Xc = np.einsum("oij,oj->oi", R[cam], X[pt]) + t[cam]
+    xn = Xc[:, :2] / Xc[:, 2:3]
+    uv = (360.0, 288.0) + f * xn * (1.0 + k1 * (xn ** 2).sum(1, keepdims=True))
+    uv = (uv + rng.normal(scale=noise_px, size=uv.shape)).astype(np.float32)
+    Rn = R.copy()
+    for i in range(1, M):
+        Rn[i] = Rn[i] @ rot(rng.normal(size=3), 0.015)
+    tn = t + np.where(np.arange(M)[:, None] > 0, rng.normal(scale=0.02, size=t.shape),
+                      0).astype(np.float32)
+    Xn = X + rng.normal(scale=0.02, size=X.shape).astype(np.float32)
+    fixed = np.zeros(M, bool)
+    fixed[0] = True
+    return Rn, tn, Xn, cam, pt, np.ones(M * P, bool), fixed, uv
+
+
+def test_run_ba_joint_on_cuda_matches_cpu(dev):
+    """The bordered joint LM (25 iterations from a 12% wrong focal) on the
+    card against the CPU: costs to 1e-3 relative, f to 1e-4, the
+    predicted pixel radius to 0.02 px, poses to 1e-4."""
+    from sfm_tpu_torch.models import calibrate as cal
+
+    arrays = _distorted_orbit(np.random.default_rng(5))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        T = [torch.as_tensor(a, device=d) for a in arrays]
+        intr = cal.Intrinsics(*(torch.tensor(v, device=d)
+                                for v in (0.88 * 2800.0, 360.0, 288.0, 0.0, 0.0)))
+        (R, t, X), it, costs = cal.run_ba_joint(*T, intr, iters=25, huber_px=2.0)
+        assert costs.device.type == d.type
+        out[d.type] = (R.cpu().numpy(), costs.cpu().numpy(),
+                       [float(v) for v in (it.f, it.k1, it.k2)])
+    (Rc, cc, ic), (Rg, cg, ig) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(cg, cc, rtol=1e-3)
+    assert cg[-1] < 0.05 * cg[0]
+    assert ig[0] == pytest.approx(ic[0], rel=1e-4)
+    r = np.linspace(0, 0.13, 64)
+    px = [i[0] * r * (1 + i[1] * r * r + i[2] * r ** 4) for i in (ic, ig)]
+    assert np.abs(px[0] - px[1]).max() < 0.02
+    np.testing.assert_allclose(Rg, Rc, atol=1e-4)
+    assert abs(ig[0] - 2800.0) / 2800.0 < 0.02 and abs(ig[1] + 0.28) < 0.05
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_free_ba_stage_on_cuda_matches_float64(dev, solver, tmp_path, monkeypatch):
+    """The turntable free-BA stage (no camera fixed: the 7-dimensional
+    gauge held by the LM damping alone), dumped by SFM_TPU_TT_DUMP from the
+    injected ring's run on the card and rebuilt by ``free_ba_problem``:
+    30 LM iterations of each solver on the card end within 1e-4 of a
+    float64 CPU solve (relative cost)."""
+    from sfm_tpu_torch.config import PipelineConfig
+    from sfm_tpu_torch.models import bundle_adjust as ba, turntable as tt
+    from synthetic_ring import INJECTED_K, injected_ring
+
+    frames, Rc, tc, _, _ = injected_ring()
+    dump = tmp_path / "ba.npz"
+    monkeypatch.setenv("SFM_TPU_TT_DUMP", str(dump))
+    tt.reconstruct_turntable(_ring_feats(frames, dev), Rc, tc, INJECTED_K,
+                             PipelineConfig(), pose_valid=np.ones(12, bool))
+    R, t, X, problem, delta = tt.free_ba_problem(dump, dev)
+    assert not bool(problem.fixed.any())
+
+    def f64(a):
+        return a.detach().cpu().double() if a.is_floating_point() else a.cpu()
+
+    _, ref = ba.run_ba(f64(R), f64(t), f64(X), ba.BAProblem(*map(f64, problem)),
+                       iters=30, huber_delta=delta, solver="dense")
+    _, costs = ba.run_ba(R, t, X, problem, iters=30, huber_delta=delta, solver=solver)
+    c, c_ref = float(costs[-1]), float(ref[-1])
+    assert bool(torch.isfinite(costs).all()) and c < float(costs[0])
+    assert abs(c - c_ref) / c_ref <= 1e-4, (solver, c, c_ref)
