@@ -97,13 +97,28 @@ Phases, each of which fails the run on any error:
    frame by stage; then ``run_ba``'s dense LU and CG on the run's own
    free-BA stage (dumped by ``SFM_TPU_TT_DUMP``, no camera fixed)
    against a float64 CPU solve;
-11. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
+11. the distributed layer (``sfm_tpu_torch/parallel/``): (a) on a
+   one-rank NCCL mesh in this process, phase 9's 12 PGMs through
+   ``reconstruct ... --mesh 1 --checkpoint`` (K6 once per matched pair
+   through ``dist_match``, the global BA through ``run_dist_ba``), gated
+   as phase 9 (a), with ms per frame by stage beside phase 9's; then
+   ``dist_match_top2`` at ``__graft_entry__.py``'s dry-run shape (4,096
+   x 4,096) equal to the local K6 bit for bit, ``run_dist_ba`` (CG and
+   dense) on that run's global BA problem against ``run_ba`` with the
+   same solver (within 1e-6, deterministic algorithms on both), and on
+   the dry run's 16-camera rig (``tests/ba_problems.py:rig_problem``,
+   16,384 observations), with ms per LM iteration; ``make_mesh(2)``
+   must refuse, naming the one card; (b) two processes sharing the
+   card over gloo (``tests/torch_dist_worker.py``): K6 on each rank's
+   2,048 rows, the merged top-2 equal to (a)'s, the rig's BA within
+   1e-3 of (a)'s cost, the same on both ranks;
+12. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
    names a directory holding ``viff.000.ppm`` and ``viff.001.ppm``
    (bench.py's fixture), and the driver's ``--turntable`` run on r5's
    bar where it holds the 36 ring frames; skipped, and said so, when it
    is unset or the files are absent.
 
-Each of the main paths (phases 4 to 10) runs with every launch count set
+Each of the main paths (phases 4 to 11) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
 it goes through, the base chain exactly once per image and K3 once per
 image and 8 octaves it extracts, K6 once per matched pair on the
@@ -277,25 +292,35 @@ def sequence_matches(n_frames: int, closures: int = 0) -> int:
     return 1 + sum(min(i, N_BACK) for i in range(2, n_frames)) + closures
 
 
-# Images each main path extracts (phases 4 to 10): 16 bench images; 2
+# The distributed phase: the dry run's match (__graft_entry__.py:
+# dryrun_multichip, 4,096 x 4,096) and two ranks sharing the card.
+DRYRUN_N = 4096
+DIST_WORLD = 2
+DIST_BA_ITERS = 10
+
+# Images each main path extracts (phases 4 to 11): 16 bench images; 2
 # up-scale, 1 module-API, 2 window and 2 gated images; the CLI's 16
 # reconstruct images, then 3 sift runs of 2 images, the last with 9
-# octaves; the sequence's 12 frames twice; the ring's 36 frames.  The base chain launches once
+# octaves; the sequence's 12 frames twice; the ring's 36 frames; the
+# sequence's 12 frames on the mesh.  The base chain launches once
 # per image, K3 once per image and 8 octaves.
 PATH_CHAIN = {"bench": 16, "upscale": 2, "module_api": 1, "upscale_window": 2,
               "upscale_lowest": 2, "cli": 16 + 4 + 2, "sequence": 2 * SEQ_FRAMES,
-              "ring": RING_FRAMES}
+              "ring": RING_FRAMES, "distributed": SEQ_FRAMES}
 PATH_K3 = {"bench": k3_launches(16), "upscale": k3_launches(2),
            "module_api": k3_launches(1), "upscale_window": k3_launches(2),
            "upscale_lowest": k3_launches(2),
            "cli": k3_launches(16) + k3_launches(4) + k3_launches(2, 9),
-           "sequence": k3_launches(2 * SEQ_FRAMES), "ring": k3_launches(RING_FRAMES)}
+           "sequence": k3_launches(2 * SEQ_FRAMES), "ring": k3_launches(RING_FRAMES),
+           "distributed": k3_launches(SEQ_FRAMES)}
 # K6 launches where a path fixes them: the sequence's matcher calls; the
-# ring's chain matches, then one per ring pair in build_tracks.
+# ring's chain matches, then one per ring pair in build_tracks; the
+# mesh run's matcher calls (dist_match: one launch on the rank's block).
 PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
            + sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES)),
-           "ring": sequence_matches(RING_FRAMES) + RING_PAIRS}
-# Kernels each main path must launch (phases 4 to 10).
+           "ring": sequence_matches(RING_FRAMES) + RING_PAIRS,
+           "distributed": sequence_matches(SEQ_FRAMES)}
+# Kernels each main path must launch (phases 4 to 11).
 _BASE = {"base_chain", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
     "bench": _BASE | {"fused_orient_descriptor", "match_top2"},
@@ -307,6 +332,7 @@ PATH_KERNELS = {
     "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "sequence": _BASE | {"fused_orient_descriptor", "match_top2"},
     "ring": _BASE | {"fused_orient_descriptor", "match_top2"},
+    "distributed": _BASE | {"fused_orient_descriptor", "match_top2"},
 }
 
 
@@ -1854,8 +1880,262 @@ def ring_phase(gates, dev, card):
     return r, launches
 
 
+def rel_gap(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def dist_ba_ab(R, t, X, problem, mesh, iters, card, name, gates):
+    """run_dist_ba on the mesh against run_ba with the same solver on the
+    same inputs (the mesh's partition of the problem; on one rank the
+    all-reduce is an identity: gated at 1e-6 in the final cost, R and X)
+    and on the problem as it came (the cost gated at 1e-4), all with
+    deterministic algorithms (no float atomics in the segment sums);
+    then ms per LM iteration of run_dist_ba and of run_ba on the problem
+    as it came, in the default mode (CUDA events around whole runs, 3
+    after a warm-up)."""
+    import torch
+
+    from sfm_tpu_torch.models import bundle_adjust as ba
+    from sfm_tpu_torch.parallel import dist_ba, mesh as meshmod
+
+    X_sh, prob_sh = dist_ba.partition_problem(problem, X, mesh.size)
+    prob_d = ba.BAProblem(*(meshmod.put_sharded(mesh, a) for a in prob_sh[:4]),
+                          prob_sh.fixed)
+    X_d = meshmod.put_sharded(mesh, X_sh)
+    out = {"cameras": R.shape[0], "points": X.shape[0],
+           "observations": int(problem.mask.sum()), "iters": iters}
+    for solver in ("cg", "dense"):
+        kw = dict(iters=iters, solver=solver)
+
+        def run_d():
+            return dist_ba.run_dist_ba(R, t, X_d, prob_d, mesh, **kw)
+
+        def run_l():
+            return ba.run_ba(R, t, X, problem, **kw)
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            Rd, _, Xd, cd = run_d()
+            same, cs = ba.run_ba(R, t, X_sh, prob_sh, **kw)
+            _, cl = run_l()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        Xd = meshmod.gather_sharded(mesh, Xd)
+        r = {"cost_initial": float(cd[0]), "cost_final": float(cd[-1]),
+             "gap_cost": abs(float(cd[-1]) / float(cs[-1]) - 1),
+             "gap_R": rel_gap(Rd, same.R), "gap_X": rel_gap(Xd, same.X),
+             "gap_cost_as_it_came": abs(float(cd[-1]) / float(cl[-1]) - 1),
+             "finite": bool(torch.isfinite(cd).all()),
+             "never_rises": bool((cd[1:] <= cd[:-1]).all()),
+             "ms_per_iter": cuda_ms(run_d, reps=3, warmup=1) / iters,
+             "ms_per_iter_run_ba": cuda_ms(run_l, reps=3, warmup=1) / iters}
+        out[solver] = r
+        log(f"run_dist_ba {solver} on {name} ({out['cameras']} cameras, {out['points']} "
+            f"point slots, {out['observations']} observations, {iters} LM iterations, "
+            f"{mesh.backend} mesh of {mesh.size}): cost {r['cost_initial']:.6g} -> "
+            f"{r['cost_final']:.6g}; against run_ba on the same inputs (deterministic "
+            f"algorithms) gaps cost {r['gap_cost']:.2e}, R {r['gap_R']:.2e}, X "
+            f"{r['gap_X']:.2e}; cost against run_ba on the problem as it came "
+            f"{r['gap_cost_as_it_came']:.2e}; {r['ms_per_iter']:.3f} ms per LM "
+            f"iteration, run_ba {r['ms_per_iter_run_ba']:.3f} (CUDA events, {card})")
+        gates.check(r["finite"] and r["never_rises"] and r["cost_final"] < r["cost_initial"],
+                    f"run_dist_ba {solver} on {name}: cost {r['cost_initial']} -> "
+                    f"{r['cost_final']}")
+        for k in ("gap_cost", "gap_R", "gap_X"):
+            gates.check(r[k] <= 1e-6, f"run_dist_ba {solver} on {name}: {k} {r[k]:.3e} "
+                        f"to run_ba on the same inputs > 1e-6")
+        gates.check(r["gap_cost_as_it_came"] <= 1e-4,
+                    f"run_dist_ba {solver} on {name}: cost "
+                    f"{r['gap_cost_as_it_came']:.3e} from run_ba's > 1e-4")
+    return out
+
+
+def distributed_phase(seq_res, gates, dev, card):
+    """Phase 11: the distributed layer on a one-rank NCCL mesh (the CLI's
+    ``--mesh 1`` on the sequence; the dry run's match; BA against
+    run_ba), ``make_mesh(2)``'s refusal, then two ranks sharing the card
+    over gloo.  Returns (result, launches of the CLI run)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from ba_problems import rig_problem
+    from sfm_tpu_torch import cli
+    from sfm_tpu_torch.models import bundle_adjust as ba
+    from sfm_tpu_torch.models import incremental
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops.match import match_top2
+    from sfm_tpu_torch.parallel import dist_match, mesh as meshmod
+    from sfm_tpu_torch.utils.checkpoint import load_map
+    from sfm_tpu_torch.utils.timing import StageTimer
+    from synthetic_sequence import synthetic_sequence, write_pgms
+    from torch_dist_worker import run_ranks
+
+    # (a) The sequence through the CLI on a one-rank mesh.
+    seq = synthetic_sequence(576, 720, n_frames=SEQ_FRAMES)
+    f = float(seq["K"][0, 0])
+    timer = StageTimer()
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_pgms(d, seq["images"])
+        ply, js, npz = (os.path.join(d, n) for n in ("m.ply", "m.json", "m.npz"))
+        _cuda.reset_launches()
+        with spy(incremental, "run_incremental", timer=timer) as calls, \
+                spy(incremental, "_global_ba") as gcalls, \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["reconstruct", *paths, "--focal", f"{f:g}", "--out", ply,
+                           "--metrics", js, "--checkpoint", npz, "--mesh", "1"])
+        launches = dict(_cuda.LAUNCHES)
+        with open(js) as fh:
+            m = json.load(fh)
+        run_state = calls[0][2].state
+        ckpt, _ = load_map(npz)
+        vertices = _ply_vertices(ply)
+    same = all(torch.equal(x, y.cpu()) for x, y in zip(ckpt, run_state))
+    a = {"rc": rc, "device": m["device"], "mesh": m.get("mesh"),
+         "poses": m["poses_registered"], "points": m["num_points"],
+         "px": m["mean_reproj_px"], "ba_cost_initial": m["ba_cost_initial"],
+         "ba_cost_final": m["ba_cost_final"],
+         **sequence_quality(ckpt.R, ckpt.t, ckpt.pose_valid, seq),
+         "ply_vertices": vertices, "checkpoint_equals_run": same,
+         "ms": m["stage_times"]["pipeline"]["total_ms"],
+         "group_closed": not tdist.is_initialized()}
+    a["stage_ms_per_frame"] = {k: v["total_ms"] / max(a["poses"], 1)
+                               for k, v in timer.summary().items()}
+    log(f"distributed (a) cli reconstruct x{SEQ_FRAMES} PGMs --mesh 1 ({a['mesh']}): "
+        f"poses {a['poses']} points {a['points']} px {a['px']:.4f} ATE {a['ate']:.6f} "
+        f"rotation error median {a['rot_median_deg']:.5f} max {a['rot_max_deg']:.5f} "
+        f"deg, BA cost {a['ba_cost_initial']:.6g} -> {a['ba_cost_final']:.6g}; PLY "
+        f"{vertices} vertices; checkpoint equals the run's map: {same}; {a['ms']:.0f} ms "
+        f"(host clock, {card})")
+    base = seq_res["module"]["stage_ms_per_frame"]
+    per = ", ".join(f"{k} {v:.2f} (phase 9 (b) {base.get(k, float('nan')):.2f})"
+                    for k, v in a["stage_ms_per_frame"].items())
+    log(f"distributed (a) ms per registered frame (host clock around synchronized "
+        f"stages, {card}; phase 9 (b) without the mesh, with its closure pair): {per}")
+    log(f"launches in the mesh run: {launches}")
+    gates.check(rc == 0, f"distributed cli: exit code {rc}")
+    gates.check(a["mesh"] == {"size": 1, "backend": "nccl"},
+                f"distributed cli: mesh {a['mesh']}, not one NCCL rank")
+    gates.check(a["group_closed"], "distributed cli: the process group was left open")
+    gates.check(a["device"] == torch.cuda.get_device_name(0),
+                f"distributed cli: ran on {a['device']}")
+    gates.check(vertices == a["points"], f"distributed cli: PLY holds {vertices} "
+                f"vertices, num_points {a['points']}")
+    gates.check(same, "distributed cli: the checkpoint differs from the run's map")
+    gate_sequence(a, JAX_SEQUENCE["cli"], gates, "distributed cli")
+    check_path_launches("distributed", launches, gates)
+
+    # (a) Matching and BA on a one-rank mesh, after the counts were read.
+    rng = np.random.default_rng(0)
+    d1, d2 = (rng.normal(size=(DRYRUN_N, 128)).astype(np.float32) for _ in range(2))
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    v2 = np.ones(DRYRUN_N, bool)
+    R0, t0, X0, *arrs = rig_problem()
+    f32 = (lambda x: torch.as_tensor(x, device=dev,
+                                     dtype=torch.float32 if x.dtype.kind == "f" else None))
+    rig = ba.BAProblem(*map(f32, arrs))
+    n_proc = meshmod.init_distributed()
+    with meshmod.make_global_mesh() as mesh:
+        gates.check(n_proc == 1 and (mesh.size, mesh.backend, mesh.device) == (1, "nccl", dev),
+                    f"distributed: init_distributed() {n_proc}, make_global_mesh() {mesh}")
+        t1, t2, tv = f32(d1), f32(d2), f32(v2)
+        before = _cuda.LAUNCHES["match_top2"]
+        top2 = dist_match.dist_match_top2(t1, meshmod.put_sharded(mesh, t2), tv, mesh)
+        torch.cuda.synchronize()
+        k6 = _cuda.LAUNCHES["match_top2"] - before
+        ref = match_top2(t1, t2, tv)
+        match_equal = all(torch.equal(x, y) for x, y in zip(top2, ref))
+        match = {"n1": DRYRUN_N, "n2": DRYRUN_N, "k6_launches": k6, "equal": match_equal,
+                 "ms": cuda_ms(lambda: dist_match.dist_match_top2(
+                     t1, meshmod.put_sharded(mesh, t2), tv, mesh)),
+                 "local_ms": cuda_ms(lambda: match_top2(t1, t2, tv))}
+        log(f"dist_match_top2 {DRYRUN_N} x {DRYRUN_N} on the one-rank mesh: K6 x{k6}, "
+            f"equal to the local K6 bit for bit: {match_equal}; {match['ms']:.4f} ms "
+            f"against {match['local_ms']:.4f} (CUDA events, {card})")
+        gates.check(k6 == 1 and match_equal, f"dist_match_top2 on one rank: K6 x{k6}, "
+                    f"equal {match_equal}")
+        # What one collective costs: CG's [M, 6] all-reduce per matvec, the
+        # matcher's [N1, 3] float64 all-gather per pair.
+        x6 = torch.ones((SEQ_FRAMES, 6), device=dev)
+        c3 = torch.ones((DRYRUN_N, 3), dtype=torch.float64, device=dev)
+        match["all_reduce_ms"] = cuda_ms(lambda: mesh.all_reduce(x6))
+        match["all_gather_ms"] = cuda_ms(lambda: mesh.all_gather(c3))
+        log(f"one {mesh.backend} collective on the one-rank mesh: all-reduce of "
+            f"[{SEQ_FRAMES}, 6] f32 {match['all_reduce_ms']:.4f} ms, all-gather of "
+            f"[{DRYRUN_N}, 3] f64 {match['all_gather_ms']:.4f} ms (CUDA events, {card})")
+        g_args = gcalls[0][0]
+        problem = incremental.build_ba_problem(*g_args[:4])
+        st = g_args[0]
+        ba_seq = dist_ba_ab(st.R, st.t, st.X, problem, mesh, 20, card,
+                            "the sequence's global BA", gates)
+        ba_rig = dist_ba_ab(*map(f32, (R0, t0, X0)), rig, mesh, DIST_BA_ITERS, card,
+                            "the dry run's rig", gates)
+    try:
+        meshmod.make_mesh(2)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    log(f"make_mesh(2): {refusal}")
+    n_cards = torch.cuda.device_count()
+    gates.check(refusal is not None and f"have {n_cards}" in refusal,
+                f"make_mesh(2) on {n_cards} card(s): {refusal}")
+
+    # (b) Two ranks sharing the card over gloo.
+    cases = {"match/dryrun/d1": d1, "match/dryrun/d2": d2, "match/dryrun/v2": v2,
+             "match/dryrun/bf16": np.bool_(True)}
+    for solver in ("cg", "dense"):
+        cases.update({f"ba/{solver}/{k}": v for k, v in zip(
+            ("R", "t", "X", "cam", "pt", "uv", "mask", "fixed"),
+            (x.astype(np.float32) if x.dtype.kind == "f" else x
+             for x in (R0, t0, X0, *arrs)))})
+        cases.update({f"ba/{solver}/iters": np.int64(DIST_BA_ITERS),
+                      f"ba/{solver}/solver": np.str_(solver),
+                      f"ba/{solver}/cg_iters": np.int64(32)})
+    t0_ = time.perf_counter()
+    results, lines = run_ranks(cases, device=str(dev), world=DIST_WORLD,
+                               timeout=600)
+    b = {"world": DIST_WORLD, "seconds": time.perf_counter() - t0_, "lines": lines,
+         "k6_launches_per_rank": [int(r["launches/match_top2"]) for r in results]}
+    ref_np = [x.cpu().numpy() for x in ref]
+    b["match_equal"] = [bool(all(np.array_equal(r[f"match/dryrun/{k}"], x)
+                                 for k, x in zip(("best", "second", "index"), ref_np)))
+                        for r in results]
+    for solver in ("cg", "dense"):
+        c = results[0][f"ba/{solver}/costs"]
+        b[solver] = {"cost_initial": float(c[0]), "cost_final": float(c[-1]),
+                     "gap_to_one_rank": abs(float(c[-1]) / ba_rig[solver]["cost_final"] - 1),
+                     "ms_per_iter": [float(r[f"ba/{solver}/ms_per_iter"]) for r in results],
+                     "never_rises": bool(np.all(np.diff(c) <= 0))}
+    log(f"distributed (b) {DIST_WORLD} ranks on {torch.cuda.get_device_name(0)} over gloo "
+        f"({b['seconds']:.1f} s with the processes' start): K6 per rank "
+        f"{b['k6_launches_per_rank']} (dist_match_top2 + dist_match on "
+        f"{DRYRUN_N // DIST_WORLD} rows each), top-2 equal to (a)'s: {b['match_equal']}; "
+        + "; ".join(f"{s} cost {b[s]['cost_initial']:.6g} -> {b[s]['cost_final']:.6g} "
+                    f"(gap to one rank {b[s]['gap_to_one_rank']:.2e}), ms per LM iteration "
+                    f"by rank {[round(x, 3) for x in b[s]['ms_per_iter']]} (host clock, "
+                    f"{card})" for s in ("cg", "dense")))
+    log(f"distributed (b) ranks' cost lines equal: {lines[0] == lines[1]}: {lines[0]}")
+    gates.check(all(b["match_equal"]), f"2 ranks: top-2 differs from one rank's K6 "
+                f"{b['match_equal']}")
+    gates.check(b["k6_launches_per_rank"] == [2] * DIST_WORLD,
+                f"2 ranks: K6 launches per rank {b['k6_launches_per_rank']}")
+    gates.check(len(set(lines)) == 1, f"2 ranks: the ranks' costs differ: {lines}")
+    for solver in ("cg", "dense"):
+        gates.check(b[solver]["gap_to_one_rank"] <= 1e-3 and b[solver]["never_rises"],
+                    f"2 ranks: run_dist_ba {solver} {b[solver]}")
+    res = {"cli": a, "match": match, "ba_sequence": ba_seq, "ba_rig": ba_rig,
+           "make_mesh_2": refusal, "two_ranks": b}
+    return res, launches
+
+
 def dino(cfg, gates, dev):
-    """Phase 11: bench.py's gates on the dino pair, and r5's bar on the
+    """Phase 12: bench.py's gates on the dino pair, and r5's bar on the
     driver's --turntable run of its 36 ring frames, where present."""
     import torch
 
@@ -1950,6 +2230,7 @@ def main() -> int:
     cli_res, launches["cli"] = cli_phase(pair, rpair, gates, dev, card)
     seq_res, launches["sequence"] = sequence_phase(gates, dev, card)
     ring_res, launches["ring"] = ring_phase(gates, dev, card)
+    dist_res, launches["distributed"] = distributed_phase(seq_res, gates, dev, card)
     # One record per kernel: the largest error over every shape it was
     # held at; times and bounds at the bench path's shapes (K7's at the
     # up-scale path's, K8's at the module API's, the only main path that
@@ -1973,7 +2254,7 @@ def main() -> int:
                    "k3_nine_octaves": nine, "k3_past_13_planes": wide,
                    "base_chain_odd_and_9_levels": odd, "module_api": api,
                    "upscale_window": win, "cli": cli_res, "sequence": seq_res,
-                   "ring": ring_res,
+                   "ring": ring_res, "distributed": dist_res,
                    "dino": dino_res,
                    "gate_failures": gates.failures}, fh, indent=1, default=float)
     if gates.failures:

@@ -5,7 +5,7 @@ two-view main path, or of its multi-view path, on one card.
 Run from the repository root on a machine with an NVIDIA card:
 
     python3 profile_port.py [--pairs 5] [--tvote-rounds N]
-    python3 profile_port.py --sequence
+    python3 profile_port.py --sequence [--mesh 1]
     python3 profile_port.py --ring
 
 Drives ``sfm_tpu_torch`` with ``chip_smoke.py``'s ``slice_config``
@@ -29,6 +29,12 @@ each ending in a synchronize), then one profiled run's kernel launches
 and device ms per stage and per registered frame, and the same
 run's ms per frame with ``torch.use_deterministic_algorithms(True)``;
 a JSON summary goes to ``chiprun_out/profile_port_sequence.json``.
+With ``--mesh N`` it runs the same sequence without a mesh and on a
+mesh of N ranks (``sfm_tpu_torch.parallel``; one process holds one
+rank, so N is 1 unless launched by torchrun), in turns (without, with,
+with, without) after a warm-up of each, then profiles one run of each:
+the ms, kernel launches and device ms per registered frame of each
+stage, into ``chiprun_out/profile_port_sequence_mesh.json``.
 
 ``--ring`` drives the turntable driver (``python -m
 sfm_tpu_torch.tools.reconstruct_dino --turntable``) on ``chip_smoke.py``'s
@@ -78,16 +84,20 @@ def kernels_by_stage(prof, stages):
     return kern, by_stage
 
 
-def sequence(card) -> int:
-    """The multi-view path's stage times and device profile (module
-    docstring)."""
+SEQ_STAGES = ("extract", "match", "bootstrap", "register", "local_ba", "closure",
+              "global_ba")
+
+
+def sequence_runner():
+    """run(timer, mesh=None) -> (result, wall ms): ``run_incremental`` on
+    chip_smoke's sequence (12 frames of 576 x 720, the CLI's defaults,
+    closure (0, 11)), synchronized before and after."""
     import torch
 
     from chip_smoke import SEQ_CLOSURES, SEQ_FRAMES
     from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
     from sfm_tpu_torch.models import incremental
     from sfm_tpu_torch.ops import _cuda
-    from sfm_tpu_torch.utils.timing import StageTimer
     from synthetic_sequence import synthetic_sequence
 
     dev = torch.device("cuda", 0)
@@ -96,17 +106,27 @@ def sequence(card) -> int:
     cfg = PipelineConfig(sift=SiftConfig(max_pts_per_octave=1024),
                          ransac=RansacConfig(n_hyps=1024, threshold=3e-6))
     _cuda.library()
-    stages = ("extract", "match", "bootstrap", "register", "local_ba", "closure",
-              "global_ba")
 
-    def run(timer):
+    def run(timer, mesh=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = incremental.run_incremental(imgs, seq["K"], cfg, seed=0, ba_iters=20,
-                                          closure_pairs=SEQ_CLOSURES, timer=timer)
+                                          closure_pairs=SEQ_CLOSURES, timer=timer,
+                                          mesh=mesh)
         torch.cuda.synchronize()
         return res, (time.perf_counter() - t0) * 1e3
+    return run
 
+
+def sequence(card) -> int:
+    """The multi-view path's stage times and device profile (module
+    docstring)."""
+    import torch
+
+    from chip_smoke import SEQ_CLOSURES, SEQ_FRAMES
+    from sfm_tpu_torch.utils.timing import StageTimer
+
+    run = sequence_runner()
     run(None)                                       # warm-up
     timer = StageTimer()
     res, wall = run(timer)
@@ -120,7 +140,7 @@ def sequence(card) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         _, prof_wall = run(StageTimer())
-    kern, by_stage = kernels_by_stage(prof, stages)
+    kern, by_stage = kernels_by_stage(prof, SEQ_STAGES)
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     print(f"profiled run: wall {prof_wall:.1f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / prof_wall:.1f}%), {len(kern)} kernels")
@@ -154,6 +174,58 @@ def sequence(card) -> int:
                                      "stage_ms_per_frame": det_per_frame,
                                      "points": int(det_res.state.X_valid.sum())}},
                   fh, indent=1)
+    return 0
+
+
+def sequence_mesh(card, n) -> int:
+    """The sequence's stages without a mesh and on a mesh of ``n``
+    ranks, in one process (module docstring)."""
+    import torch
+
+    from chip_smoke import SEQ_CLOSURES, SEQ_FRAMES
+    from sfm_tpu_torch.parallel import mesh as meshmod
+    from sfm_tpu_torch.utils.timing import StageTimer
+
+    run_seq = sequence_runner()
+    out = {"card": card, "frames": SEQ_FRAMES, "closure": SEQ_CLOSURES}
+    with meshmod.make_mesh(n) as mesh:
+        meshes = {"without": None, f"mesh_{mesh.size}": mesh}
+
+        def run(name, timer):
+            return run_seq(timer, meshes[name])
+
+        names = list(meshes)
+        for name in names:
+            run(name, None)                          # warm-up
+        for name in (names[0], names[1], names[1], names[0]):
+            timer = StageTimer()
+            res, wall = run(name, timer)
+            k = int(res.state.pose_valid.sum())
+            per_frame = {s: v["total_ms"] / k for s, v in timer.summary().items()}
+            out.setdefault(name, {"runs": []})["runs"].append(
+                {"wall_ms": wall, "registered": k, "points": int(res.state.X_valid.sum()),
+                 "stage_ms_per_frame": per_frame})
+            print(f"card: {card}; {name}: wall {wall:.1f} ms = {wall / k:.2f} per frame, "
+                  f"{k} registered, {int(res.state.X_valid.sum())} points; per frame: "
+                  + ", ".join(f"{s} {v:.2f}" for s, v in per_frame.items()))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for name in names:
+            with torch.profiler.profile(activities=acts) as prof:
+                res, prof_wall = run(name, StageTimer())
+            kern, by_stage = kernels_by_stage(prof, SEQ_STAGES)
+            k = int(res.state.pose_valid.sum())
+            busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+            out[name]["profiled"] = {"wall_ms": prof_wall, "device_busy_ms": busy,
+                                     "kernel_launches": len(kern), "by_stage": by_stage}
+            print(f"{name} profiled: wall {prof_wall:.1f} ms, device busy {busy:.2f} ms, "
+                  f"{len(kern)} kernels")
+            for s, (cnt, ms) in by_stage.items():
+                print(f"  {s:10s} {cnt / k:8.1f} kernels and {ms / k:7.3f} ms device "
+                      f"per frame")
+    path = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "profile_port_sequence_mesh.json"), "w") as fh:
+        json.dump(out, fh, indent=1, default=float)
     return 0
 
 
@@ -229,8 +301,12 @@ def main() -> int:
                     help="profile run_incremental on the 12-frame sequence")
     ap.add_argument("--ring", action="store_true",
                     help="profile the turntable driver on the 36-frame ring")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="with --sequence: also on a mesh of N ranks, in turns")
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "tests"))
+    if args.sequence and args.mesh:
+        return sequence_mesh(card_line(), args.mesh)
     if args.sequence:
         return sequence(card_line())
     if args.ring:

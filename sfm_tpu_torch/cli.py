@@ -9,14 +9,19 @@ it runs on the CPU only when asked to with ``--device cpu``.
 Usage:
   python -m sfm_tpu_torch reconstruct IMG1 IMG2 [IMG...] \\
       --focal 2360 [--cx CX --cy CY] --out cloud.ply [--metrics m.json] \\
-      [--checkpoint map.npz] [--ba-iters 20] [--closure I,J]
+      [--checkpoint map.npz] [--ba-iters 20] [--closure I,J] [--mesh N]
+  torchrun --nproc-per-node N -m sfm_tpu_torch reconstruct ... --distributed
   python -m sfm_tpu_torch sift IMG [IMG2] [--thresh 2.0] [--up-scale] \\
       [--out feats.npz] [--metrics out.json] [--homography]
 
 ``--checkpoint`` writes the incremental map (3+ images); a two-image
-run has no map state and, as in the JAX package, writes none.  Not
-ported yet, and refused with ``NotImplementedError``: ``--mesh`` and
-``--distributed`` (``parallel/``).
+run has no map state and, as in the JAX package, writes none.
+``--mesh N`` and ``--distributed`` shard the incremental path's
+matching and global BA over a mesh of ranks (``parallel/``): one
+process and one device per rank, so ``--mesh`` forms a mesh of 1 in
+this process and refuses more, and ``--distributed`` joins the
+processes a launcher started (``cuda:LOCAL_RANK`` each; one process
+without a launcher).  Rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -72,14 +77,34 @@ def _emit(metrics, timer, path):
             f.write(out)
 
 
+def _mesh(args, dev):
+    """The mesh of ``--distributed`` or ``--mesh N`` (None without
+    either), formed before any CUDA work."""
+    if not (args.distributed or args.mesh):
+        return None
+    from sfm_tpu_torch.parallel import mesh as meshmod
+
+    if args.distributed:
+        n_proc = meshmod.init_distributed(backend="gloo" if dev.type == "cpu" else "nccl")
+        mesh = meshmod.make_global_mesh(device=dev)
+        print(f"distributed: {n_proc} processes, mesh over {mesh.size} devices",
+              file=sys.stderr)
+        return mesh
+    return meshmod.make_mesh(args.mesh if args.mesh > 0 else None, device=dev)
+
+
 def cmd_reconstruct(args):
     if len(args.images) < 2:
         raise ValueError("reconstruct needs at least two images")
-    if args.mesh or args.distributed:
-        raise NotImplementedError(
-            "--mesh / --distributed: the distributed layer (parallel/) is not "
-            "ported yet")
     dev = _device(args.device)
+    mesh = _mesh(args, dev)
+    if mesh is None:
+        return _reconstruct(args, dev, None)
+    with mesh:
+        return _reconstruct(args, mesh.device, mesh)
+
+
+def _reconstruct(args, dev, mesh):
     import numpy as np
     import torch
 
@@ -127,7 +152,8 @@ def cmd_reconstruct(args):
         t0 = time.perf_counter()
         res = incremental.run_incremental(
             [torch.as_tensor(im, device=dev) for im in imgs], K, cfg,
-            seed=args.seed, ba_iters=args.ba_iters, closure_pairs=args.closure)
+            seed=args.seed, ba_iters=args.ba_iters, closure_pairs=args.closure,
+            mesh=mesh)
         sync(res)
         timer.record("pipeline", time.perf_counter() - t0)
         state = res.state
@@ -145,6 +171,10 @@ def cmd_reconstruct(args):
             "ba_cost_initial": float(costs[0]),
             "ba_cost_final": float(costs[-1]),
         }
+    if mesh is not None:
+        metrics["mesh"] = {"size": mesh.size, "backend": mesh.backend}
+        if mesh.rank != 0:
+            return 0
     if args.out:
         from sfm_tpu_torch.io import image_io
 
@@ -271,9 +301,12 @@ def build_parser():
                    metavar="I,J",
                    help="loop-closure frame pair (incremental)")
     r.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="device mesh (the distributed layer; not ported)")
+                   help="shard matching + global BA over a local N-device mesh "
+                        "(-1 = all local devices; one process is one device)")
     r.add_argument("--distributed", action="store_true",
-                   help="multi-process run (the distributed layer; not ported)")
+                   help="multi-process: torch.distributed from torchrun's env "
+                        "(MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / "
+                        "LOCAL_RANK) and shard over ALL ranks")
     device_option(r)
     r.set_defaults(fn=cmd_reconstruct)
 

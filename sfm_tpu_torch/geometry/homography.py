@@ -129,12 +129,14 @@ def improve_homography(H, uv1, uv2, mask, *, loops: int = 5,
                        threshold: float = 9.0):
     """The reference's ImproveHomography: ``loops`` rounds of a
     hard-gated (err < threshold px^2) weighted DLT refit over the
-    ``mask`` candidates, each applied unconditionally.  Returns H with
-    H[2, 2] = 1."""
+    ``mask`` candidates, each applied unconditionally, except that a
+    round which gates fewer than 4 points (no refit to take) keeps the
+    previous H, where the reference's refit degenerates (NaN in the JAX
+    package).  Returns H with H[2, 2] = 1."""
     T1, T2, n1, n2 = _normalized(uv1, uv2, mask)
     T2inv = torch.linalg.inv(T2)
     A_all = homography_system(n1, n2).reshape(-1, 9)
     for _ in range(loops):
         gate = (transfer_errors(H, uv1, uv2) < threshold) & mask
-        H = _lsq_refit(A_all, gate, T1, T2inv)
+        H = torch.where(gate.sum() >= 4, _lsq_refit(A_all, gate, T1, T2inv), H)
     return _unit_h22(H)

@@ -161,16 +161,24 @@ def _nonzero(x):
 
 
 def schur_solve_cg(U, V, Jc_w, Jp, r, w, problem: BAProblem, gc, gp, lam, fixed,
-                   *, cg_iters: int = 32):
+                   *, cg_iters: int = 32, all_reduce=None):
     """Matrix-free damped Schur solve by block-Jacobi preconditioned CG.
 
     Never forms S or the grouped cross blocks: each S-product is two
     observation-space einsums and two segment sums, O(O) per CG step.
     Fixed cameras get identity rows (their delta is 0).  Returns
     (delta_cam [M,6], delta_pt [P,3]).
+
+    ``all_reduce`` (the JAX package's ``psum_axis``; e.g.
+    ``parallel.mesh.Mesh.all_reduce``): sums a tensor over the ranks of
+    a point-partitioned problem (cameras replicated, every point with
+    all of its observations on one rank: ``parallel.dist_ba``).  U and
+    gc arrive summed; the camera segment sum of each W-product is
+    summed here, one [M, 6] reduction per matvec.
     """
     M = U.shape[0]
     dt = U.dtype
+    reduce = _identity if all_reduce is None else all_reduce
     dU, dV = _damped(U, V, lam)
     Vinv = _inv3x3(dV)
     free = (~fixed).to(dt)[:, None]
@@ -183,7 +191,7 @@ def schur_solve_cg(U, V, Jc_w, Jp, r, w, problem: BAProblem, gc, gp, lam, fixed,
 
     def W_z(z):  # [P,3] -> [M,6]
         c = torch.einsum("oaj,oj->oa", Jp, z[pt])
-        return _segment_sum(torch.einsum("oai,oa->oi", Jc_w, c), cam, M)
+        return reduce(_segment_sum(torch.einsum("oai,oa->oi", Jc_w, c), cam, M))
 
     def S_mul(v):
         v = v * free
@@ -216,20 +224,23 @@ def schur_solve_cg(U, V, Jc_w, Jp, r, w, problem: BAProblem, gc, gp, lam, fixed,
     return delta_c, delta_p
 
 
-def schur_solve(U, V, Wg, gc, gp, lam, fixed):
+def schur_solve(U, V, Wg, gc, gp, lam, fixed, *, all_reduce=None):
     """Damped dense Schur-complement solve (one [6M, 6M] LU).
-    Returns (delta_cam [M,6], delta_pt [P,3])."""
+    Returns (delta_cam [M,6], delta_pt [P,3]).  ``all_reduce``: as in
+    :func:`schur_solve_cg`; here the [M,6,M,6] and [M,6] cross terms
+    are summed over the ranks, and the LU is replicated."""
+    reduce = _identity if all_reduce is None else all_reduce
     M = U.shape[0]
     dt, dev = U.dtype, U.device
     dU, dV = _damped(U, V, lam)
     Vinv = _inv3x3(dV)                                           # [P,3,3]
     Bv = torch.einsum("pmix,pxy->pmiy", Wg, Vinv)                # [P,M,6,3]
-    S = -torch.einsum("pmiy,pnjy->minj", Bv, Wg)                 # [M,6,M,6]
+    S = -reduce(torch.einsum("pmiy,pnjy->minj", Bv, Wg))         # [M,6,M,6]
     ar = torch.arange(M, device=dev)
     # S[m, :, m, :] is camera m's diagonal block (split advanced indices
     # put the camera axis first: a [M, 6, 6] view of the blocks).
     S[ar, :, ar, :] += dU
-    rhs = gc - torch.einsum("pmiy,py->mi", Bv, gp)
+    rhs = gc - reduce(torch.einsum("pmiy,py->mi", Bv, gp))
     # Gauge: zero the rows / columns of fixed cameras, identity blocks.
     free = (~fixed).to(dt)
     S = S * free[:, None, None, None] * free[None, None, :, None]
@@ -241,6 +252,10 @@ def schur_solve(U, V, Wg, gc, gp, lam, fixed):
     Wtdc = torch.einsum("pmiy,mi->py", Wg, delta_c)
     delta_p = -torch.einsum("pxy,py->px", Vinv, gp + Wtdc)
     return delta_c, delta_p
+
+
+def _identity(x):
+    return x
 
 
 def _apply(R, t, X, delta_c, delta_p):
@@ -280,31 +295,39 @@ def resolve_solver(solver: str, n_cams: int, n_pts: int) -> str:
 @f32_matmul
 def run_ba(R, t, X, problem: BAProblem, *, iters: int = 20,
            huber_delta: float = 3e-3, init_lam: float = 1e-3,
-           solver: str = "auto", cg_iters: int = 32):
+           solver: str = "auto", cg_iters: int = 32, all_reduce=None):
     """LM bundle adjustment; returns (final BAState, costs [iters + 1]:
     the initial cost, then the cost after each iteration).
 
     ``solver``: "dense" (the exact [6M, 6M] Schur solve; materializes
     Wg [P, M, 6, 3]), "cg" (matrix-free preconditioned CG on the Schur
     complement, O(O) memory) or "auto" (``resolve_solver``).
+
+    ``all_reduce``: the rank's part of a point-partitioned problem
+    (``parallel.dist_ba.run_dist_ba``): X and the observations are the
+    rank's, R and t replicated; the cost and the camera blocks are
+    summed over the ranks, so every rank takes the same LM decisions.
     """
     n_cams, n_pts = R.shape[0], X.shape[0]
     solver = resolve_solver(solver, n_cams, n_pts)
-    cost = robust_cost(R, t, X, problem, huber_delta)
+    reduce = _identity if all_reduce is None else all_reduce
+    cost = reduce(robust_cost(R, t, X, problem, huber_delta))
     lam = torch.full((), init_lam, dtype=R.dtype, device=R.device)
     costs = [cost]
     for _ in range(iters):
         if solver == "dense":
             U, V, Wg, gc, gp = normal_equation_blocks(
                 R, t, X, problem, huber_delta, n_cams, n_pts)
-            dc, dp = schur_solve(U, V, Wg, gc, gp, lam, problem.fixed)
+            dc, dp = schur_solve(reduce(U), V, Wg, reduce(gc), gp, lam, problem.fixed,
+                                 all_reduce=all_reduce)
         else:
             U, V, gc, gp, Jc_w, _, Jp, r, w = weighted_system(
                 R, t, X, problem, huber_delta, n_cams, n_pts)
-            dc, dp = schur_solve_cg(U, V, Jc_w, Jp, r, w, problem, gc, gp, lam,
-                                    problem.fixed, cg_iters=cg_iters)
+            dc, dp = schur_solve_cg(reduce(U), V, Jc_w, Jp, r, w, problem, reduce(gc),
+                                    gp, lam, problem.fixed, cg_iters=cg_iters,
+                                    all_reduce=all_reduce)
         Rn, tn, Xn = _apply(R, t, X, dc, dp)
-        c_new = robust_cost(Rn, tn, Xn, problem, huber_delta)
+        c_new = reduce(robust_cost(Rn, tn, Xn, problem, huber_delta))
         ok = c_new < cost
         R = torch.where(ok, Rn, R)
         t = torch.where(ok, tn, t)

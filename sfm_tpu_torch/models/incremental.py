@@ -32,6 +32,7 @@ from sfm_tpu_torch.geometry import camera, pnp, pose as pose_mod, ransac, refine
 from sfm_tpu_torch.geometry import triangulate as tri
 from sfm_tpu_torch.models import bundle_adjust as ba
 from sfm_tpu_torch.ops.compact import compaction_order
+from sfm_tpu_torch.parallel import dist_ba, dist_match, mesh as meshmod
 from sfm_tpu_torch.sift import frontend, match as match_mod
 from sfm_tpu_torch.utils.precision import f32_matmul
 
@@ -307,18 +308,19 @@ def _window_problem(problem: ba.BAProblem, X_valid, win_lo: int, win_hi: int,
 
 
 def _make_matcher(cfg: PipelineConfig, mesh=None):
-    """The pairwise matcher (local; the sharded one belongs to the
-    distributed layer, which is not ported)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the distributed layer (parallel/, dist_match and dist_ba) "
-            "is not ported yet")
-    return lambda d1, d2, v1, v2: match_mod.match(d1, d2, v1, v2, cfg.match)
+    """The pairwise matcher: local, or with the right set sharded over
+    the mesh's ranks (``parallel.dist_match``)."""
+    if mesh is None:
+        return lambda d1, d2, v1, v2: match_mod.match(d1, d2, v1, v2, cfg.match)
+    return lambda d1, d2, v1, v2: dist_match.dist_match(d1, d2, v1, v2, cfg.match,
+                                                        mesh=mesh)
 
 
-def _resolve_device(images, feats, device):
+def _resolve_device(images, feats, device, mesh=None):
     if device is not None:
         return torch.device(device)
+    if mesh is not None:
+        return mesh.device
     if feats is not None:
         return feats[0].descriptors.device
     if isinstance(images[0], torch.Tensor):
@@ -355,8 +357,12 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
                     minimal_sets=None) -> IncrementalResult:
     """Full incremental reconstruction over a list of [H, W] images.
 
-    Runs on ``device``: by default that of ``feats`` or of tensor
-    images, else ``cuda``.  ``feats`` (one SiftResult per image)
+    Runs on ``device``: by default the mesh's, or that of ``feats`` or
+    of tensor images, else ``cuda``.  With ``mesh``
+    (``parallel.mesh.Mesh``) every rank runs the pipeline on the same
+    images, and the two heavy stages shard their work over the ranks:
+    the matcher the right descriptor set (``dist_match``), the global
+    BA the points (``dist_ba``).  ``feats`` (one SiftResult per image)
     replaces the extraction.  ``local_ba_obs_cap``: observation capacity
     of the per-frame windowed local BA (None = (local_ba_window + n_back
     + 2) * keypoint capacity; 0 = no compaction).  ``closure_pairs``:
@@ -369,7 +375,7 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
     seeded with ``seed`` (parity tests).
     """
     n_images = len(images)
-    dev = _resolve_device(images, feats, device)
+    dev = _resolve_device(images, feats, device, mesh)
     matcher = _make_matcher(cfg, mesh)
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
     K_inv = camera.inv_intrinsics(K)
@@ -471,7 +477,7 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
 
     with _stage(timer, "global_ba", dev):
         state, costs, mean_reproj = _global_ba(state, uv_all, kp_valid, K_inv,
-                                               ba_iters)
+                                               ba_iters, mesh)
     return IncrementalResult(state=state, uv=uv_all, kp_valid=kp_valid,
                              ba_costs=costs, mean_reproj=mean_reproj)
 
@@ -509,14 +515,43 @@ def _median(x, mask):
                              0.5)
 
 
-def _global_ba(state, uv_all, kp_valid, K_inv, ba_iters):
+def _ba_rounds(problem, X, mesh):
+    """``run(R, t, X, mask, iters) -> (R, t, X, costs)``: ``run_ba`` on
+    ``problem`` with that mask; with a mesh, ``run_dist_ba`` on the
+    problem's point partition.  The partition is laid out once: a later
+    round only shrinks the mask, so it reuses the layout through
+    ``obs_idx``, as the JAX package does."""
+    if mesh is None:
+        def run(R, t, X, mask, iters):
+            final, costs = ba.run_ba(R, t, X, problem._replace(mask=mask), iters=iters)
+            return final.R, final.t, final.X, costs
+        return run
+    _, layout, obs_idx = dist_ba.partition_problem(problem, X, mesh.size,
+                                                   return_layout=True)
+
+    def shard(a):
+        return meshmod.put_sharded(mesh, a)
+
+    def run(R, t, X, mask, iters):
+        m = (obs_idx >= 0) & mask[obs_idx.clamp(min=0)]
+        prob = ba.BAProblem(shard(layout.cam_idx), shard(layout.pt_idx),
+                            shard(layout.uv), shard(m), layout.fixed)
+        X_sh = shard(dist_ba.partition_points(X, mesh.size))
+        R, t, X_sh, costs = dist_ba.run_dist_ba(R, t, X_sh, prob, mesh, iters=iters)
+        X = dist_ba.unpartition_points(meshmod.gather_sharded(mesh, X_sh), X.shape[0])
+        return R, t, X, costs
+    return run
+
+
+def _global_ba(state, uv_all, kp_valid, K_inv, ba_iters, mesh=None):
     """Global BA, one pruning round (25 x the median squared residual)
     with re-triangulation of the tracks it leaves under two
-    observations, and a second global BA.  Returns (state, costs of
-    both rounds, mean squared residual of the kept observations)."""
+    observations, and a second global BA; with a mesh, both rounds are
+    ``dist_ba``'s.  Returns (state, costs of both rounds, mean squared
+    residual of the kept observations)."""
     problem = build_ba_problem(state, uv_all, kp_valid, K_inv)
-    final, costs = ba.run_ba(state.R, state.t, state.X, problem, iters=ba_iters)
-    R_f, t_f, X_f = final.R, final.t, final.X
+    run = _ba_rounds(problem, state.X, mesh)
+    R_f, t_f, X_f, costs = run(state.R, state.t, state.X, problem.mask, ba_iters)
     r = ba._residuals(R_f, t_f, X_f, problem)
     rn2 = torch.sum(r * r, dim=-1)
     med = _median(rn2, problem.mask)
@@ -538,9 +573,9 @@ def _global_ba(state, uv_all, kp_valid, K_inv, ba_iters):
     # A rescued point keeps only the observations that pass against X_rt.
     keep = torch.where(accept[problem.pt_idx], keep_rt, keep)
     problem2 = problem._replace(mask=keep)
-    final, costs2 = ba.run_ba(R_f, t_f, X_f, problem2, iters=max(ba_iters // 2, 5))
-    state = state._replace(R=final.R, t=final.t, X=final.X)
-    r = ba._residuals(final.R, final.t, final.X, problem2)
+    R_f, t_f, X_f, costs2 = run(R_f, t_f, X_f, keep, max(ba_iters // 2, 5))
+    state = state._replace(R=R_f, t=t_f, X=X_f)
+    r = ba._residuals(R_f, t_f, X_f, problem2)
     denom = torch.clamp(problem2.mask.sum(), min=1)
     mean_reproj = torch.sum(torch.where(problem2.mask, torch.sum(r * r, -1),
                                         torch.zeros_like(rn2))) / denom

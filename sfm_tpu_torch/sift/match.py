@@ -27,12 +27,19 @@ def match(desc1, desc2, valid1=None, valid2=None,
     n1 = desc1.shape[0]
     if valid1 is None:
         valid1 = torch.ones(n1, dtype=torch.bool, device=desc1.device)
-    best, second, idx = match_top2(desc1, desc2, valid2, bf16=cfg.bf16)
-    idx = idx.to(torch.int64)
-    ambiguity = second / (best + 1e-6)
-    ok = valid1 & (best > cfg.min_score) & (ambiguity < cfg.max_ambiguity)
+    m = ratio_test(*match_top2(desc1, desc2, valid2, bf16=cfg.bf16), valid1, cfg)
     if cfg.mutual:
         _, _, ridx = match_top2(desc2, desc1, valid1, bf16=cfg.bf16)
-        ok = ok & (ridx.to(torch.int64)[idx]
-                   == torch.arange(n1, device=desc1.device))
-    return Matches(index=idx, score=best, ambiguity=ambiguity, valid=ok)
+        m = m._replace(valid=m.valid & (ridx.to(torch.int64)[m.index]
+                                        == torch.arange(n1, device=desc1.device)))
+    return m
+
+
+def ratio_test(best, second, index, valid1, cfg: MatchConfig) -> Matches:
+    """The matches of a top-2 search: valid where row 1 is valid, the
+    best score passes ``min_score`` and ``second / (best + 1e-6)`` is
+    under ``max_ambiguity``."""
+    ambiguity = second / (best + 1e-6)
+    ok = valid1 & (best > cfg.min_score) & (ambiguity < cfg.max_ambiguity)
+    return Matches(index=index.to(torch.int64), score=best, ambiguity=ambiguity,
+                   valid=ok)

@@ -26,6 +26,7 @@ from sfm_tpu.utils import checkpoint as jcheckpoint
 from sfm_tpu_torch import cli, config, interop
 from sfm_tpu_torch.io import image_io
 from sfm_tpu_torch.models import incremental, two_view
+from sfm_tpu_torch.parallel import mesh as meshmod
 from sfm_tpu_torch.utils import checkpoint
 from sfm_tpu_torch.sift import frontend, match
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -235,11 +236,51 @@ def test_cli_two_images_write_no_checkpoint(pgm_pair, tmp_path):
     assert m["mode"] == "two_view" and "checkpoint" not in m
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "2"], ["--distributed"]])
-def test_cli_refuses_what_is_not_ported(pgm_pair, extra):
+def test_cli_mesh_past_the_device_count_is_refused(pgm_pair):
     paths, _ = pgm_pair
-    with pytest.raises(NotImplementedError):
-        cli.main(["reconstruct", *paths, *extra, "--device", "cpu"])
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        cli.main(["reconstruct", *paths, "--mesh", "2", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.fixture(scope="module")
+def pgm_sequence(tmp_path_factory):
+    seq = synthetic_sequence(144, 176, n_frames=3)
+    return write_pgms(str(tmp_path_factory.mktemp("seq")), seq["images"]), seq
+
+
+@pytest.mark.parametrize("extra", [["--mesh", "1"], ["--mesh", "-1"], ["--distributed"]])
+def test_cli_on_a_one_rank_mesh_equals_run_incremental_on_it(
+        pgm_sequence, extra, tmp_path, capsys, monkeypatch):
+    """``--mesh 1``, ``--mesh -1`` (every device: one CPU) and
+    ``--distributed`` without a launcher's environment (one process)
+    run the 3-frame sequence on a one-rank gloo mesh, equal to a direct
+    run_incremental on such a mesh, and close the group."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    paths, seq = pgm_sequence
+    js, npz = str(tmp_path / "m.json"), str(tmp_path / "map.npz")
+    f = float(seq["K"][0, 0])
+    rc = cli.main(["reconstruct", *paths, "--focal", str(f), *_SMALL,
+                   "--ransac-hyps", "256", "--ba-iters", "6", "--metrics", js,
+                   "--checkpoint", npz, "--device", "cpu", *extra])
+    assert rc == 0 and not torch.distributed.is_initialized()
+    m = json.loads(pathlib.Path(js).read_text())
+    assert m["mesh"] == {"size": 1, "backend": "gloo"}
+    assert m["poses_registered"] == 3 and m["ba_cost_final"] < m["ba_cost_initial"]
+    said = "distributed: 1 processes, mesh over 1 devices" in capsys.readouterr().err
+    assert said == (extra == ["--distributed"])
+    cfg = config.PipelineConfig(
+        sift=config.SiftConfig(num_octaves=3, max_pts_per_octave=256),
+        ransac=config.RansacConfig(n_hyps=256, threshold=3e-6))
+    imgs = [torch.as_tensor(image_io.load_gray(p)) for p in paths]
+    with meshmod.make_mesh(1, device="cpu") as mesh:
+        res = incremental.run_incremental(imgs, seq["K"], cfg, ba_iters=6, mesh=mesh)
+    assert m["num_points"] == int(res.state.X_valid.sum())
+    assert m["ba_cost_final"] == float(res.ba_costs[-1])
+    st, _ = checkpoint.load_map(npz)
+    for a, b in zip(st, res.state):
+        assert torch.equal(a, b)
 
 
 def test_cli_needs_a_card_unless_told_cpu(pgm_pair):

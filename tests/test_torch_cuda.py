@@ -838,3 +838,103 @@ def test_free_ba_stage_on_cuda_matches_float64(dev, solver, tmp_path, monkeypatc
     c, c_ref = float(costs[-1]), float(ref[-1])
     assert bool(torch.isfinite(costs).all()) and c < float(costs[0])
     assert abs(c - c_ref) / c_ref <= 1e-4, (solver, c, c_ref)
+
+
+def test_dist_match_on_a_one_rank_mesh_equals_the_local_match(dev):
+    """dist_match_top2 and dist_match on a one-rank NCCL mesh launch K6
+    once each on the rank's block (all of the right set) and equal the
+    local calls bit for bit: the one-rank all-gather is a copy, and the
+    float64 it carries holds the f32 scores and the indices exactly."""
+    from sfm_tpu_torch.config import MatchConfig
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.ops.match import match_top2
+    from sfm_tpu_torch.parallel import dist_match, mesh as meshmod
+    from sfm_tpu_torch.sift import match
+
+    rng = np.random.default_rng(5)
+    d1, d2 = (torch.nn.functional.normalize(torch.as_tensor(
+        rng.normal(size=(n, 128)).astype(np.float32), device=dev), dim=1)
+        for n in (1000, 2048))
+    v2 = torch.as_tensor(rng.random(2048) > 0.1, device=dev)
+    with meshmod.make_mesh(1, device=dev) as mesh:
+        assert mesh.backend == "nccl" and mesh.device == dev
+        _cuda.reset_launches()
+        top2 = dist_match.dist_match_top2(d1, meshmod.put_sharded(mesh, d2), v2, mesh)
+        m = dist_match.dist_match(d1, d2, None, v2, MatchConfig(), mesh=mesh)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["match_top2"] == 2
+    for a, b in zip(top2, match_top2(d1, d2, v2)):
+        assert torch.equal(a, b)
+    for a, b in zip(m, match.match(d1, d2, None, v2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("solver", ["cg", "dense"])
+def test_run_dist_ba_on_a_one_rank_mesh_equals_run_ba(dev, solver):
+    """run_dist_ba on a one-rank NCCL mesh against run_ba on the card,
+    both with deterministic algorithms (no float atomics in the segment
+    sums): on the same inputs (the one-block partition) bit for bit,
+    the one-rank all-reduce being a copy; on the problem as it came
+    (the partition drops the masked slots, so the cost sums in another
+    order) the costs to 1e-5 relative."""
+    from sfm_tpu_torch.models import bundle_adjust as ba
+    from sfm_tpu_torch.parallel import dist_ba, mesh as meshmod
+
+    R0, t0, X0, *arrs = (torch.as_tensor(a, device=dev) for a in _ba_problem())
+    prob = ba.BAProblem(*arrs)
+    X_sh, prob_sh = dist_ba.partition_problem(prob, X0, 1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with meshmod.make_mesh(1, device=dev) as mesh:
+            out = dist_ba.run_dist_ba(R0, t0, X_sh, prob_sh, mesh, iters=10,
+                                      solver=solver)
+        same, c_same = ba.run_ba(R0, t0, X_sh, prob_sh, iters=10, solver=solver)
+        _, c_came = ba.run_ba(R0, t0, X0, prob, iters=10, solver=solver)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(out, (same.R, same.t, same.X, c_same)):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(out[3].cpu().numpy(), c_came.cpu().numpy(), rtol=1e-5)
+
+
+def test_two_ranks_sharing_the_card_over_gloo(dev):
+    """Two processes on one card joined over gloo (collectives staged
+    through host memory): K6 once per rank on its half of the right
+    set, the merged top-2 equal to the local K6 match (the kernel's
+    scores do not depend on the column range: indices and scores
+    exactly); run_dist_ba (CG) on the 16-camera rig within 1e-3 of
+    run_ba's cost on the card, the same on both ranks."""
+    from ba_problems import rig_problem
+    from sfm_tpu_torch.models import bundle_adjust as ba
+    from sfm_tpu_torch.ops.match import match_top2
+    from torch_dist_worker import run_ranks
+
+    rng = np.random.default_rng(6)
+    d1, d2 = (rng.normal(size=(n, 128)).astype(np.float32) for n in (1024, 2048))
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    v2 = np.ones(2048, bool)
+    R0, t0, X0, cam, pt, uv, mask, fixed = rig_problem(M=8, P=1024, obs_per_cam=512)
+    f32 = (lambda a: a.astype(np.float32))
+    cases = {"match/a/d1": d1, "match/a/d2": d2, "match/a/v2": v2,
+             "match/a/bf16": np.bool_(True),
+             "ba/cg/R": f32(R0), "ba/cg/t": f32(t0), "ba/cg/X": f32(X0), "ba/cg/cam": cam,
+             "ba/cg/pt": pt, "ba/cg/uv": f32(uv), "ba/cg/mask": mask, "ba/cg/fixed": fixed,
+             "ba/cg/iters": np.int64(8), "ba/cg/solver": np.str_("cg"),
+             "ba/cg/cg_iters": np.int64(32)}
+    results, lines = run_ranks(cases, device=f"cuda:{dev.index}", world=2)
+    best, second, idx = (a.cpu().numpy() for a in match_top2(
+        *(torch.as_tensor(a, device=dev) for a in (d1, d2, v2))))
+    for r in results:
+        assert int(r["launches/match_top2"]) == 2      # dist_match_top2, dist_match
+        np.testing.assert_array_equal(r["match/a/index"], idx)
+        np.testing.assert_array_equal(r["match/a/best"], best)
+        np.testing.assert_array_equal(r["match/a/second"], second)
+    assert lines[0] == lines[1]
+    prob = ba.BAProblem(*(torch.as_tensor(a, device=dev) for a in
+                          (cam, pt, f32(uv), mask, fixed)))
+    _, costs = ba.run_ba(*(torch.as_tensor(f32(a), device=dev) for a in (R0, t0, X0)),
+                         prob, iters=8, solver="cg")
+    c = results[0]["ba/cg/costs"]
+    assert np.isfinite(c).all() and np.all(np.diff(c) <= 0)
+    assert abs(c[-1] / float(costs[-1]) - 1) <= 1e-3

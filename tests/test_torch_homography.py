@@ -110,6 +110,18 @@ def test_ransac_homography_with_a_generator_finds_the_truth(corr):
         homography.ransac_homography(T(uv1), T(uv2))      # no draw given
 
 
+def test_improve_homography_keeps_the_seed_when_a_round_gates_no_point():
+    """H = I against 50 correspondences 500 px off: no round gates 4
+    points, so the seed comes back (the refit of an empty gate was an
+    all-zero H)."""
+    rng = np.random.default_rng(2)
+    uv1 = rng.uniform(0, 600, (50, 2)).astype(np.float32)
+    uv2 = uv1 + np.float32(500.0)
+    H = homography.improve_homography(T(np.eye(3, dtype=np.float32)), T(uv1),
+                                      T(uv2), T(np.ones(50, bool)))
+    assert torch.equal(H, torch.eye(3))
+
+
 def test_improve_homography_matches_jax(corr):
     uv1, uv2, mask, _ = corr
     # A seed within the 3 px gate of most inliers, as RANSAC hands over.

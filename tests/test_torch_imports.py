@@ -31,7 +31,9 @@ import sfm_tpu_torch.models.two_view
 for m in pkgutil.walk_packages(sfm_tpu_torch.__path__, "sfm_tpu_torch."):
     importlib.import_module(m.name)
 walked = {"sfm_tpu_torch.models.tracks", "sfm_tpu_torch.models.turntable",
-          "sfm_tpu_torch.models.calibrate", "sfm_tpu_torch.tools.reconstruct_dino"}
+          "sfm_tpu_torch.models.calibrate", "sfm_tpu_torch.tools.reconstruct_dino",
+          "sfm_tpu_torch.parallel.mesh", "sfm_tpu_torch.parallel.dist_match",
+          "sfm_tpu_torch.parallel.dist_ba"}
 assert walked <= set(sys.modules), walked - set(sys.modules)
 """ + _CHECK
 # chip_smoke.py imported as a module: main() does not run.

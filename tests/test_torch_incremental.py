@@ -8,6 +8,9 @@ held exactly; coordinates built by the same f32 algorithms to 1e-4.
 With the JAX draws injected, one registration or closure step gives the
 same tables, and so does a whole run (its poses to 1e-5 / 1e-3, its
 points to 1e-3: f32 through ~20 RANSAC and LM decisions on both sides).
+On a one-rank mesh (the sharded matcher and the partitioned global BA,
+an in-process gloo group) a whole run with the JAX draws is held to the
+same bars against the JAX package's run on ``make_mesh(1)``.
 With its own generator's draws, a whole run is held to the quality bars
 of the JAX package's own test (every pose, ATE < 0.05, < 1 px) in each
 package and to stated factors of JAX's ATE and point count.
@@ -25,10 +28,12 @@ from sfm_tpu.config import PipelineConfig, RansacConfig
 from sfm_tpu.geometry import camera as jcamera
 from sfm_tpu.geometry import ransac as jransac
 from sfm_tpu.models import incremental as jinc
+from sfm_tpu.parallel import mesh as jmeshmod
 from sfm_tpu.sift import match as jmatch
 from sfm_tpu.utils import metrics as jmetrics
 from sfm_tpu_torch import interop
 from sfm_tpu_torch.models import incremental as inc
+from sfm_tpu_torch.parallel import mesh as meshmod
 from synthetic_sequence import (arc_poses, orbit_features, synthetic_sequence,
                                 view_overlap)
 from test_incremental import _synthetic_orbit
@@ -286,9 +291,27 @@ def test_run_incremental_matches_jax_quality(orbit):
     assert rt.state.point_id.dtype == torch.int64
 
 
-def test_run_incremental_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        inc.run_incremental([None] * 3, np.eye(3), TCFG, mesh=object(), device="cpu")
+def test_run_incremental_on_a_mesh_matches_jax(orbit):
+    """A whole run on a one-rank mesh (in-process gloo group: the sharded
+    matcher and the partitioned global BA) with the JAX run's draws
+    injected, against the JAX package's run on ``make_mesh(1)`` at the
+    bars of the run without a mesh above."""
+    feats, K, _, _, _, draws = orbit
+    rj = jinc.run_incremental([None] * 5, K, JCFG, ba_iters=12, feats=feats,
+                              mesh=jmeshmod.make_mesh(1))
+    sets = {i: T(d) for i, d in zip([0, 2, 3, 4], draws)}
+    with meshmod.make_mesh(1, device="cpu") as mesh:
+        rt = inc.run_incremental([None] * 5, K, TCFG, ba_iters=12,
+                                 feats=[interop.to_torch(f) for f in feats],
+                                 minimal_sets=sets, mesh=mesh)
+    for f in ("X_valid", "n_points", "pose_valid", "point_id"):
+        np.testing.assert_array_equal(_np(getattr(rt.state, f)),
+                                      _np(getattr(rj.state, f)), f)
+    np.testing.assert_allclose(_np(rt.state.R), _np(rj.state.R), atol=1e-5)
+    np.testing.assert_allclose(_np(rt.state.t), _np(rj.state.t), atol=1e-3)
+    np.testing.assert_allclose(_np(rt.state.X), _np(rj.state.X), atol=1e-3)
+    np.testing.assert_allclose(_np(rt.ba_costs), _np(rj.ba_costs), rtol=1e-4)
+    assert math.isclose(float(rt.mean_reproj), float(rj.mean_reproj), rel_tol=1e-4)
 
 
 def test_synthetic_sequence_renders_the_arc():
