@@ -112,13 +112,35 @@ Phases, each of which fails the run on any error:
    card over gloo (``tests/torch_dist_worker.py``): K6 on each rank's
    2,048 rows, the merged top-2 equal to (a)'s, the rig's BA within
    1e-3 of (a)'s cost, the same on both ranks;
-12. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
+12. the XLA routes (``SiftConfig(fused_detect=False, use_pallas=False)``
+   and ``MatchConfig(use_pallas=False)``: the dense DoG detector,
+   two-stage sampling and the f32 matcher): (a) the bench path of phase
+   4 on that route over 8 seeds, gated against the JAX package's run of
+   the same configuration (``tests/jax_cli_reference.py --parts xla``)
+   and the rendered pose, with ms per pair and per stage beside the
+   fused route's; (b) the up-scale path of phase 5 on that route at
+   ``lowest_scale`` 0 and 1.0, features and ratio-test matches at 98-102%
+   of the JAX package's (its numbers are its XLA route's), the H error
+   bars of phase 5, the gated run with fewer features; (c)
+   ``build_pyramid`` + ``detect`` on the 576 x 720 image against the
+   fused route's ``detect_stage`` (counts within 1%, shared keypoints
+   within 0.2 px); (d) the route's kernels against their plain versions
+   at its shapes: K6 in its f32 mode at 5,120^2 and at the up-scale
+   run's 23,552^2 (with the f32 ``torch.topk(a @ b.T, 2)`` as its
+   library call), K8 on each image's capped slots and K5 on the 2K
+   compacted slots; (e) ``svd3x3(method="analytic")`` against
+   ``"jacobi"`` on phase 4's 1,536-hypothesis 8-point bank and
+   ``triangulate(solver="adj")`` against ``"jacobi"`` on its 2,560
+   compacted correspondences, with ms and launches of each.  The route
+   launches the base chain, K8 and K5 once per image, K6 once per pair,
+   K7 once per up-scale image, and K3, K4 and K9 never;
+13. the dino pair, with bench.py's quality gates, when ``SFM_DINO_DIR``
    names a directory holding ``viff.000.ppm`` and ``viff.001.ppm``
    (bench.py's fixture), and the driver's ``--turntable`` run on r5's
    bar where it holds the 36 ring frames; skipped, and said so, when it
    is unset or the files are absent.
 
-Each of the main paths (phases 4 to 11) runs with every launch count set
+Each of the main paths (phases 4 to 12) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
 it goes through, the base chain exactly once per image and K3 once per
 image and 8 octaves it extracts, K6 once per matched pair on the
@@ -126,9 +148,10 @@ sequence, and together they launch all eight
 (K1 and K2 are one kernel).  The last lines of
 standard output are the kernels' JSON record (each kernel's
 ``launches`` summed over those paths, its ``max_abs_err`` the largest
-of phases 3, 5 and 6, its times and bound phase 3's, or phase 5's for
-K7 and phase 6's for K8; K3's gated mode under ``gated``, at both
-shapes),
+of phases 3, 5, 6 and 12, its times and bound phase 3's, or phase 5's
+for K7 and phase 6's for K8; K3's gated mode under ``gated``, at both
+shapes; K6's f32 mode under ``f32`` and K8 and K5 at the XLA route's
+shapes under ``xla_route``, from phase 12),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 A detailed JSON report goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -167,13 +190,32 @@ MAX_TDIR_DEG = 2.0
 # within a median 0.1183 px / max 0.3123 px of H_gt on the 16 x 12 grid
 # (PERF.md).  Features, candidates and H-fit must reach 90%; the H error
 # gates are 3x the JAX package's, rounded down.
-JAX_UPSCALE = {"n1": 10444, "n2": 10935, "candidates": 296, "numfit": 6597}
+JAX_UPSCALE = {"n1": 10444, "n2": 10935, "matches": 4705, "candidates": 296,
+               "numfit": 6597}
 MAX_H_MEDIAN_PX = 0.35
 MAX_H_MAX_PX = 0.93
 # The same with lowest_scale=1.0 (the scale gate; the same script):
 # features 10,442 / 10,933, 4,705 matches, 296 candidates (5 wrong),
 # H-fit 6,597, H error 0.1184 / 0.3124 px.  The same gates.
-JAX_UPSCALE_LOWEST = {"n1": 10442, "n2": 10933, "candidates": 296, "numfit": 6597}
+JAX_UPSCALE_LOWEST = {"n1": 10442, "n2": 10933, "matches": 4705, "candidates": 296,
+                      "numfit": 6597}
+
+# The JAX package's XLA route at bench.py's configuration with
+# SiftConfig(fused_detect=False, use_pallas=False) and
+# MatchConfig(use_pallas=False) on the same float pair, PRNGKey(seed)
+# for seeds 0-7, measured on CPU by `tests/jax_cli_reference.py --parts
+# xla`: median matches 1869, inliers 1729, valid points 1729, 0.14182
+# px; worst seed 0.047 deg rotation and 0.284 deg translation-direction
+# error (the same as JAX_MEDIANS: that run took the same route by the
+# CPU's auto rules).  Phase 12 (a) holds the port's XLA route to 90% of
+# each median, px <= JAX / 0.9, and the pose bounds on every seed.
+JAX_XLA_MEDIANS = {"matches": 1869.0, "inliers": 1729.0, "valid": 1729.0,
+                   "px": 0.14181984844571116}
+# Phase 12 (b): the up-scale extraction has no random draws, so on the
+# XLA route the port's features and ratio-test matches must land within
+# 2% of the JAX package's (JAX_UPSCALE, JAX_UPSCALE_LOWEST: its XLA
+# route).
+XLA_UPSCALE_BAND = (0.98, 1.02)
 
 # The JAX package's CLI (`python -m sfm_tpu reconstruct a.pgm b.pgm
 # --focal 792 --seed s`, its defaults otherwise: tvote_rounds=1,
@@ -334,6 +376,16 @@ PATH_KERNELS = {
     "ring": _BASE | {"fused_orient_descriptor", "match_top2"},
     "distributed": _BASE | {"fused_orient_descriptor", "match_top2"},
 }
+
+
+def xla_config(cfg):
+    """``cfg`` (a PipelineConfig) on the JAX package's XLA route: the
+    dense detector, two-stage sampling and the f32 matcher."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, sift=dataclasses.replace(cfg.sift, fused_detect=False, use_pallas=False),
+        match=dataclasses.replace(cfg.match, use_pallas=False))
 
 
 def log(*a):
@@ -1064,11 +1116,11 @@ def h_fit(s1, s2, m, generator, n_hyps: int = 8192) -> HFit:
     return HFit(H, uv1, uv2, cand, int(((errs < 9.0) & slot_ok).sum()))
 
 
-def upscale_run(rpair, cfg, dev):
+def upscale_run(rpair, cfg, dev, mcfg=None):
     """One up-scale run as bench_upscale drives it: warm-up, 6 timed
     extractions, then the counted run (launch counts set to 0 just
-    before, read just after): extract x2, match, H-fit.  Returns (result
-    dict, s1, s2)."""
+    before, read just after): extract x2, match (``mcfg``, else
+    ``MatchConfig()``), H-fit.  Returns (result dict, s1, s2)."""
     import numpy as np
     import torch
 
@@ -1097,7 +1149,7 @@ def upscale_run(rpair, cfg, dev):
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     m = match_mod.match(s1.descriptors, s2.descriptors, s1.keypoints.valid,
-                        s2.keypoints.valid, MatchConfig())
+                        s2.keypoints.valid, mcfg or MatchConfig())
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     gen = torch.Generator(device=dev)
@@ -2134,8 +2186,406 @@ def distributed_phase(seq_res, gates, dev, card):
     return res, launches
 
 
+def profile_launches(fn):
+    """(kernel launches, device ms) of one call of ``fn``, from a
+    ``torch.profiler`` trace of it (the profiler's own buffers left
+    out)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "Buffer" not in e.name]
+    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3
+
+
+def check_xla_launches(where, launches, images, pairs, up_scale, gates):
+    """The XLA route's launches: the base chain, K8 and K5 once per
+    image, K7 once per image with ``up_scale``, K6 once per pair, and
+    never K3, K4 or K9."""
+    want = {"base_chain": images, "orientation_histogram_sample": images,
+            "descriptor_sample": images, "match_top2": pairs,
+            "scale_up": images if up_scale else 0, "detect_maps": 0,
+            "fused_orient_descriptor": 0, "fused_orient_descriptor_win": 0}
+    for name, n in want.items():
+        gates.check(launches[name] == n, f"{where}: {name} launched {launches[name]} "
+                    f"times, not {n}")
+
+
+def stage_ms(img1, img2, K, cfg, dev, seed=0):
+    """Host-clock ms of one pair's stages, each ending in a synchronize:
+    detect and sample (both images), match, geometry."""
+    import torch
+
+    from sfm_tpu_torch.models import two_view
+    from sfm_tpu_torch.sift import frontend
+
+    out = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = out.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return r
+
+    offsets, subs = frontend.atlas_layout(tuple(img1.shape), cfg.sift)
+    feats = []
+    for img in (img1, img2):
+        atlas, dets = run("detect", lambda: frontend.detect_stage(img, cfg.sift))
+        feats.append(run("sample", lambda: frontend.sample_stage(
+            atlas, offsets, subs, dets, cfg.sift)))
+    uv1, uv2, mask = run("match", lambda: two_view.match_stage(*feats, cfg))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    run("geometry", lambda: two_view.two_view_geometry(uv1, uv2, mask, K, cfg,
+                                                       generator=gen))
+    return out
+
+
+def xla_bench_path(pair, cfg, gates, dev, card):
+    """Phase 12 (a): the bench path on the XLA route over 8 seeds, gated
+    against the JAX package's run of the same configuration and the
+    rendered pose; ms per stage of the two routes in turns."""
+    import torch
+
+    from sfm_tpu_torch.ops import _cuda
+    from synthetic_pair import pose_errors_deg
+
+    xcfg = xla_config(cfg)
+    img1 = torch.as_tensor(pair["img1"], device=dev)
+    img2 = torch.as_tensor(pair["img2"], device=dev)
+    K = torch.as_tensor(pair["K"], device=dev)
+    f = float(pair["K"][0, 0])
+    run_pairs(img1, img2, K, xcfg, f, [0], dev)          # warm-up
+    _cuda.reset_launches()
+    rows = run_pairs(img1, img2, K, xcfg, f, range(8), dev)
+    launches = dict(_cuda.LAUNCHES)
+    for r in rows:
+        r["rot_deg"], r["tdir_deg"] = pose_errors_deg(r.pop("R"), r.pop("t"),
+                                                      pair["R"], pair["t"])
+        log(f"XLA route seed {r['seed']}: matches {r['matches']} inliers "
+            f"{r['inliers']} valid {r['valid']} px {r['px']:.4f} rot "
+            f"{r['rot_deg']:.4f} deg tdir {r['tdir_deg']:.4f} deg  {r['ms']:.1f} ms")
+        gates.check(r["finite"], f"XLA route seed {r['seed']}: non-finite points")
+    med = gate_two_view(rows, JAX_XLA_MEDIANS, gates, "XLA route bench path")
+    log(f"launches in the XLA route's 8-pair run: {launches}")
+    check_xla_launches("XLA route bench path", launches, 16, 8, False, gates)
+    # Stage ms of the two routes in turns (fused, XLA, XLA, fused), each
+    # the sum over two such runs.
+    stages = {"fused": {}, "xla": {}}
+    for name in ("fused", "xla", "xla", "fused"):
+        for k, v in stage_ms(img1, img2, K, cfg if name == "fused" else xcfg,
+                             dev).items():
+            stages[name][k] = stages[name].get(k, 0.0) + v / 2
+    log(f"XLA route ms/pair: median {med['ms']:.2f} (host clock around a "
+        f"synchronized pair, 720x576, {card}); by stage, XLA / fused route (mean of "
+        "two runs each, in turns): " + ", ".join(
+            f"{k} {stages['xla'][k]:.2f} / {stages['fused'][k]:.2f}"
+            for k in stages["xla"]))
+    return {"median": med, "seeds": rows, "stage_ms": stages}, launches, xcfg
+
+
+def xla_upscale_paths(rpair, ref, gates, dev, card):
+    """Phase 12 (b): the up-scale path on the XLA route at lowest_scale 0
+    and 1.0: features and ratio-test matches at 98-102% of the JAX
+    package's, candidates and H-fit at 90%, phase 5's H error bars, and
+    the gated run with fewer features.  Returns ({lowest_scale: result},
+    summed launches, the ungated run's extractions)."""
+    import dataclasses
+
+    from sfm_tpu_torch.config import MatchConfig
+
+    out, launches, feats = {}, {}, None
+    lo, hi = XLA_UPSCALE_BAND
+    for lowest, jax_ref in ((0.0, JAX_UPSCALE), (1.0, JAX_UPSCALE_LOWEST)):
+        cfg = dataclasses.replace(upscale_config(), lowest_scale=lowest,
+                                  fused_detect=False, use_pallas=False)
+        res, s1, s2 = upscale_run(rpair, cfg, dev, MatchConfig(use_pallas=False))
+        where = f"XLA route up-scale lowest_scale={lowest}"
+        _log_upscale(res, rpair, card, where)
+        gates.check(res["finite"], f"{where}: non-finite H")
+        for k in ("n1", "n2", "matches"):
+            gates.check(lo * jax_ref[k] <= res[k] <= hi * jax_ref[k],
+                        f"{where}: {k} {res[k]} outside {lo:.0%}-{hi:.0%} of the JAX "
+                        f"package's {jax_ref[k]}")
+        for k in ("candidates", "numfit"):
+            gates.check(res[k] >= 0.9 * jax_ref[k], f"{where}: {k} {res[k]} < 90% of "
+                        f"the JAX package's {jax_ref[k]}")
+        gates.check(res["h_median_px"] <= MAX_H_MEDIAN_PX,
+                    f"{where}: H median error {res['h_median_px']:.4f} px")
+        gates.check(res["h_max_px"] <= MAX_H_MAX_PX,
+                    f"{where}: H max error {res['h_max_px']:.4f} px")
+        check_xla_launches(where, res["launches"], 2, 1, True, gates)
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        out[lowest] = res
+        if lowest == 0.0:
+            feats = (s1, s2)
+    gates.check(out[1.0]["n1"] + out[1.0]["n2"] < out[0.0]["n1"] + out[0.0]["n2"],
+                f"XLA route up-scale: the gated run's features {out[1.0]['n1']} / "
+                f"{out[1.0]['n2']} not fewer than the ungated {out[0.0]['n1']} / "
+                f"{out[0.0]['n2']}")
+    log(f"XLA route up-scale features against the fused route's (phase 5): "
+        f"{out[0.0]['n1']} / {out[0.0]['n2']} vs {ref['n1']} / {ref['n2']}; "
+        f"extraction {out[0.0]['extract_ms_per_image']:.2f} vs "
+        f"{ref['extract_ms_per_image']:.2f} ms/image ({card})")
+    return out, launches, feats
+
+
+def xla_module_api(img, sc, gates):
+    """Phase 12 (c): ``build_pyramid`` + ``detect`` per octave against
+    the fused route's ``detect_stage`` on the same image: valid counts
+    within 1%, 99% of the dense route's keypoints within 0.2 px of a
+    fused one of the same octave."""
+    import torch
+
+    from sfm_tpu_torch.sift import detect, frontend, pyramid
+
+    octaves = pyramid.build_pyramid(img, sc)
+    dense = [detect.detect(o.dog, sc, o.subsampling) for o in octaves]
+    offsets, _ = frontend.atlas_layout(tuple(img.shape), sc)
+    _, fused = frontend.detect_stage(img, sc)
+    n_d = n_f = near = 0
+    for d, fz, off in zip(dense, fused, offsets):
+        pd = torch.stack([d.x, d.y], -1)[d.valid]
+        pf = torch.stack([fz.x, fz.y - off], -1)[fz.valid]
+        n_d += pd.shape[0]
+        n_f += pf.shape[0]
+        if pd.shape[0] and pf.shape[0]:
+            # Exact distances (cdist's matmul form loses ~0.2 px to
+            # cancellation at coordinates of ~700 px).
+            dist = torch.cdist(pd, pf, compute_mode="donot_use_mm_for_euclid_dist")
+            near += int((dist.min(dim=1).values <= 0.2).sum())
+    share = near / max(n_d, 1)
+    res = {"octaves": len(octaves), "dense_valid": n_d, "fused_valid": n_f,
+           "within_0.2px": share,
+           "dog_shapes": [tuple(o.dog.shape) for o in octaves]}
+    log(f"XLA route module API on {tuple(img.shape)}: build_pyramid + detect "
+        f"{n_d} valid, fused detect_stage {n_f}; {share:.5f} of the dense "
+        f"keypoints within 0.2 px of a fused one (gates: counts within 1%, >= 0.99)")
+    gates.check(n_d > 1000, f"XLA module API: only {n_d} detections")
+    gates.check(abs(n_d - n_f) <= 0.01 * n_f, f"XLA module API: {n_d} dense vs "
+                f"{n_f} fused detections")
+    gates.check(share >= 0.99, f"XLA module API: {share:.4f} within 0.2 px")
+    return res
+
+
+def hold_k6_f32(s1, s2, gates, where):
+    """K6 in its f32 mode against its plain version (TF32 off) on a
+    path's descriptor sets: scores within 1e-5, the same index on every
+    row whose best and second differ by more than that (a closer pair
+    is a tie within the summation order).  Returns the kernel's record,
+    with the f32 ``torch.topk(a @ b.T, 2)`` as its library call."""
+    import torch
+
+    from sfm_tpu_torch.ops import match
+    from sfm_tpu_torch.utils.precision import f32_precision
+
+    a, b = s1.descriptors, s2.descriptors
+    va = s2.keypoints.valid
+    bk, sk, ik = match.match_top2(a, b, va, bf16=False)
+    with f32_precision():
+        bp, sp, ip = match.match_top2_plain(a, b, va, bf16=False)
+    e6 = max(float((bk - bp).abs().max()), float((sk - sp).abs().max()))
+    clear = (bp - sp) > 1e-5
+    n_flip = int((ik != ip).sum())
+    n_flip_clear = int(((ik != ip) & clear).sum())
+    n1, n2 = a.shape[0], b.shape[0]
+    gates.check(e6 <= 1e-5, f"{where}: K6 f32 max err {e6}")
+    gates.check(n_flip_clear == 0, f"{where}: K6 f32 index differs on {n_flip_clear} "
+                f"rows with a clear best")
+    rec = kernel_record(
+        "match_top2", e6, lambda: match.match_top2(a, b, va, bf16=False),
+        lambda: match.match_top2_plain(a, b, va, bf16=False),
+        f"{n1}x{n2}x128 f32, {int(s1.keypoints.valid.sum())} live rows",
+        4 * 128 * (n1 + n2) + 4 * n2 + 12 * n1, 2.0 * n1 * n2 * 128,
+        lib_fn=lambda: torch.topk(a @ b.T, 2), plain_reps=5)
+    rec["index_differences"] = n_flip
+    log(f"{where}: K6 f32 {n1} x {n2} x 128 vs plain: max |err| {e6:.3g} (1e-5), "
+        f"{n_flip} index differences ({n_flip_clear} with a clear best, expected 0); "
+        f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f}, plain "
+        f"{rec['plain_ms']:.4f}, topk(a @ b.T) {rec['library_ms']:.4f}, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def hold_two_stage_kernels(img, sc, gates, where):
+    """K8 on the image's capped slots and K5 on the 2K compacted slots of
+    two-stage sampling, as the XLA route gives them, against their plain
+    versions: K8 within 1e-6 of the largest bin, K5's normalized rows
+    within 1e-3 and corr > 0.9999.  Returns {name: record}."""
+    import torch
+
+    from sfm_tpu_torch.ops import compact, sample
+    from sfm_tpu_torch.sift import describe, frontend, orient
+
+    atlas, dets = frontend.detect_stage(img, sc)
+    x, y, s, v, sharp = (torch.cat([getattr(d, f) for d in dets])
+                         for f in ("x", "y", "scale", "valid", "sharpness"))
+    order = frontend._sample_order(v, sharp, sc.sample_cap, [d.x.shape[0] for d in dets])
+    x, y, s, v = x[order], y[order], s[order], v[order]
+    count = v.sum().to(torch.int32)
+    K, n = x.shape[0], int(count)
+    e8, h8max = hold_orientation_kernel(atlas, x, y, s, count, gates, where)
+    held = {"orientation_histogram_sample": kernel_record(
+        "orientation_histogram_sample", e8,
+        lambda: sample.orientation_histogram_sample(atlas, x, y, s, count),
+        lambda: sample.orientation_histogram_sample_plain(atlas, x, y, s, count),
+        f"{K} slots, {n} live, atlas {tuple(atlas.shape)}",
+        patch_bytes(atlas, n, 16) + 3 * 4 * n + K * 32 * 4, n * ORI_OPS, plain_reps=5)}
+    h = sample.orientation_histogram_sample(atlas, x, y, s, count)
+    o1, o2, v2 = orient.orientations_from_histograms(h, v)
+    valid2 = torch.cat([v, v2])
+    o = compact.compaction_order(valid2)
+    x2, y2, s2, ori = (torch.cat([a, b])[o] for a, b in ((x, x), (y, y), (s, s), (o1, o2)))
+    c2 = valid2.sum().to(torch.int32)
+    n2 = int(c2)
+    rk = describe.normalize_descriptors(sample.descriptor_sample(atlas, x2, y2, s2, ori, c2))
+    rp = describe.normalize_descriptors(
+        sample.descriptor_sample_plain(atlas, x2, y2, s2, ori, c2))
+    e5 = float((rk - rp).abs().max())
+    corr = float((rk * rp).sum(1)[:n2].min())
+    gates.check(e5 <= 1e-3 and corr > 0.9999, f"{where}: K5 max err {e5}, min corr {corr}")
+    gates.check(not bool(rk[n2:].any()), f"{where}: K5 rows >= count not zero")
+    held["descriptor_sample"] = kernel_record(
+        "descriptor_sample", e5,
+        lambda: sample.descriptor_sample(atlas, x2, y2, s2, ori, c2),
+        lambda: sample.descriptor_sample_plain(atlas, x2, y2, s2, ori, c2),
+        f"{2 * K} slots, {n2} live", patch_bytes(atlas, n2, 40) + 4 * 4 * n2
+        + 2 * K * 128 * 4, n2 * DESC_OPS, plain_reps=5)
+    held["descriptor_sample"]["min_corr"] = corr
+    log(f"{where}: K8 on {K} slots ({n} live) max |err| {e8:.3g} of max |h| "
+        f"{h8max:.4g} (1e-6 relative), {held['orientation_histogram_sample']['ms']:.4f}"
+        f" ms, device {held['orientation_histogram_sample']['device_ms']:.4f}; K5 on "
+        f"{2 * K} slots ({n2} live) max |err| {e5:.3g} (1e-3), min corr {corr:.7f} "
+        f"(> 0.9999), {held['descriptor_sample']['ms']:.4f} ms, device "
+        f"{held['descriptor_sample']['device_ms']:.4f}")
+    return held
+
+
+def closed_form_solvers(pair, cfg, gates, dev, card):
+    """Phase 12 (e): ``svd3x3(method="analytic")`` against ``"jacobi"`` on
+    the bench path's 1,536-hypothesis 8-point bank (the denormalized
+    null vectors that ``project_to_essential`` decomposes), and
+    ``triangulate(solver="adj")`` against ``"jacobi"`` on its 2,560
+    compacted correspondences at the pose the path recovers, with ms and
+    launches of each.  Gates: the two largest singular values within
+    1e-4 of the largest, the third as its square (both solvers compute
+    the eigenvalues of E^T E; a third singular value near 0 is the
+    square root of their rounding); the finite points of the matched
+    correspondences equal as sets, and within 1e-3 relative on the
+    points the pose keeps (an outlier's near-degenerate DLT system has
+    no well-defined null vector in f32)."""
+    import torch
+
+    from sfm_tpu_torch.geometry import camera, epipolar, ransac, triangulate
+    from sfm_tpu_torch.models import two_view
+    from sfm_tpu_torch.ops import linalg
+    from sfm_tpu_torch.utils.precision import f32_precision
+
+    img1 = torch.as_tensor(pair["img1"], device=dev)
+    img2 = torch.as_tensor(pair["img2"], device=dev)
+    K = torch.as_tensor(pair["K"], device=dev)
+    uv1, uv2, mask = two_view.frontend_stage(img1, img2, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    res = two_view.two_view_geometry(uv1, uv2, mask, K, cfg, generator=gen)
+    K_inv = camera.inv_intrinsics(K)
+    x1, x2 = camera.normalize_points(uv1, K_inv), camera.normalize_points(uv2, K_inv)
+    rc = cfg.ransac
+    # The bank of the seed-0 run: its draws come first from the generator.
+    gen.manual_seed(0)
+    m_r = mask & (torch.sum((uv1 - uv2) ** 2, dim=-1) > rc.min_disparity_px ** 2)
+    with f32_precision():
+        T1 = epipolar.normalizing_transform(x1, m_r)
+        T2 = epipolar.normalizing_transform(x2, m_r)
+        idx = ransac.sample_minimal_sets(gen, m_r, rc.n_hyps)
+        A = epipolar.eight_point_matrix((x1 @ T1.T)[idx], (x2 @ T2.T)[idx])
+        E = epipolar.denormalize_E(linalg.qr_nullvec(A).reshape(-1, 3, 3), T1, T2)
+    out = {}
+    s_j = linalg.svd3x3(E, sweeps=rc.sweeps)[1]
+    s_a = linalg.svd3x3(E, method="analytic")[1]
+    s_rel = (s_a - s_j).abs() / s_j[:, :1]
+    s_err = float(s_rel[:, :2].max())
+    s3_sq_err = float(((s_a[:, 2] ** 2 - s_j[:, 2] ** 2).abs() / s_j[:, 0] ** 2).max())
+    P1 = torch.cat([torch.eye(3, device=dev), torch.zeros((3, 1), device=dev)], 1)
+    P2 = torch.cat([res.R, res.t[:, None]], 1)
+    Xj, _, fj = triangulate.triangulate(x1, x2, P1, P2)
+    Xa, _, fa = triangulate.triangulate(x1, x2, P1, P2, solver="adj")
+    same_sets = bool(torch.equal(fj[mask], fa[mask]))
+    rel = (Xa - Xj).norm(dim=-1) / Xj.norm(dim=-1).clamp(min=1e-12)
+    m = res.point_valid & fj
+    x_err = float(rel[m].max())
+    share_matched = float((rel[mask & fj] <= 1e-3).float().mean())
+    for name, fn in (("svd3x3_jacobi", lambda: linalg.svd3x3(E, sweeps=rc.sweeps)),
+                     ("svd3x3_analytic", lambda: linalg.svd3x3(E, method="analytic")),
+                     ("triangulate_jacobi",
+                      lambda: triangulate.triangulate(x1, x2, P1, P2)),
+                     ("triangulate_adj",
+                      lambda: triangulate.triangulate(x1, x2, P1, P2, solver="adj"))):
+        n_k, dev_ms = profile_launches(fn)
+        out[name] = {"ms": cuda_ms(fn), "launches": n_k, "device_ms": dev_ms}
+    out.update({"bank": E.shape[0], "correspondences": x1.shape[0],
+                "matched": int(mask.sum()), "kept_finite": int(m.sum()),
+                "s12_max_rel_err": s_err, "s3_max_rel_err": float(s_rel[:, 2].max()),
+                "s3_squared_max_rel_err": s3_sq_err, "finite_sets_equal": same_sets,
+                "kept_point_max_rel_err": x_err,
+                "matched_share_within_1e-3": share_matched})
+    log(f"closed-form solvers ({card}): svd3x3 on the {E.shape[0]}-hypothesis bank, "
+        f"analytic vs jacobi: s1, s2 max rel err {s_err:.3g} (1e-4), s3 "
+        f"{out['s3_max_rel_err']:.3g}, s3^2 {s3_sq_err:.3g} (1e-4); triangulate on "
+        f"{x1.shape[0]} correspondences ({int(mask.sum())} matched, {int(m.sum())} "
+        f"kept by the pose), adj vs jacobi: finite sets equal {same_sets}, max rel err "
+        f"on the kept {x_err:.3g} (1e-3), matched within 1e-3 {share_matched:.4f}; "
+        + "; ".join(
+            f"{k} {v['ms']:.4f} ms, {v['launches']} launches, device "
+            f"{v['device_ms']:.4f} ms" for k, v in out.items() if isinstance(v, dict)))
+    gates.check(s_err <= 1e-4 and s3_sq_err <= 1e-4,
+                f"svd3x3 analytic vs jacobi: {s_err}, s3^2 {s3_sq_err}")
+    gates.check(same_sets, "triangulate adj vs jacobi: finite sets differ")
+    gates.check(x_err <= 1e-3, f"triangulate adj vs jacobi: {x_err}")
+    return out
+
+
+def xla_phase(pair, rpair, up, gates, dev, card):
+    """Phase 12: the XLA routes.  Returns (result, launches of its main
+    paths, {path: {kernel name: record}})."""
+    import dataclasses
+
+    import torch
+
+    from sfm_tpu_torch.sift import frontend
+
+    cfg = slice_config()
+    bench, launches, xcfg = xla_bench_path(pair, cfg, gates, dev, card)
+    ups, up_launches, (u1, u2) = xla_upscale_paths(rpair, up, gates, dev, card)
+    for k, n in up_launches.items():
+        launches[k] += n
+    img1 = torch.as_tensor(pair["img1"], device=dev)
+    api = xla_module_api(img1, xcfg.sift, gates)
+    s1, s2 = (frontend.extract_sift(torch.as_tensor(pair[k], device=dev), xcfg.sift)
+              for k in ("img1", "img2"))
+    held = {"xla_route": {"match_top2": hold_k6_f32(s1, s2, gates, "XLA route bench"),
+                          **hold_two_stage_kernels(img1, xcfg.sift, gates,
+                                                   "XLA route bench")},
+            "xla_upscale": {"match_top2": hold_k6_f32(u1, u2, gates, "XLA route up-scale"),
+                            **hold_two_stage_kernels(
+                                torch.as_tensor(rpair["img1"], device=dev),
+                                dataclasses.replace(upscale_config(), fused_detect=False,
+                                                    use_pallas=False),
+                                gates, "XLA route up-scale")}}
+    solvers = closed_form_solvers(pair, cfg, gates, dev, card)
+    return ({"bench": bench, "upscale": ups, "module_api": api, "solvers": solvers},
+            launches, held)
+
+
 def dino(cfg, gates, dev):
-    """Phase 12: bench.py's gates on the dino pair, and r5's bar on the
+    """Phase 13: bench.py's gates on the dino pair, and r5's bar on the
     driver's --turntable run of its 36 ring frames, where present."""
     import torch
 
@@ -2231,10 +2681,13 @@ def main() -> int:
     seq_res, launches["sequence"] = sequence_phase(gates, dev, card)
     ring_res, launches["ring"] = ring_phase(gates, dev, card)
     dist_res, launches["distributed"] = distributed_phase(seq_res, gates, dev, card)
+    xla_res, launches["xla_route"], held_x = xla_phase(pair, rpair, up, gates, dev, card)
+    held.update(held_x)
     # One record per kernel: the largest error over every shape it was
     # held at; times and bounds at the bench path's shapes (K7's at the
-    # up-scale path's, K8's at the module API's, the only main path that
-    # launches it); launches summed over the main paths' runs.
+    # up-scale path's, K8's at the module API's, the fused route's only
+    # main path that launches it); launches summed over the main paths'
+    # runs.
     records = []
     for name in KERNEL_SOURCES:
         at = {p: h[name] for p, h in held.items() if name in h}
@@ -2255,7 +2708,7 @@ def main() -> int:
                    "base_chain_odd_and_9_levels": odd, "module_api": api,
                    "upscale_window": win, "cli": cli_res, "sequence": seq_res,
                    "ring": ring_res, "distributed": dist_res,
-                   "dino": dino_res,
+                   "xla_route": xla_res, "dino": dino_res,
                    "gate_failures": gates.failures}, fh, indent=1, default=float)
     if gates.failures:
         log(f"{len(gates.failures)} gate(s) failed")
@@ -2271,6 +2724,11 @@ def main() -> int:
         if "gated" in r:   # K3's gated mode, at the bench and up-scale shapes
             line[-1]["gated"] = {p: {k: h["gated"][k] for k in gated_keys}
                                  for p, h in r["held_at"].items() if "gated" in h}
+        # The XLA route's shapes (phase 12): K6's f32 mode, K8, K5.
+        xla = {p: {k: h[k] for k in gated_keys + ("library_ms",)}
+               for p, h in r["held_at"].items() if p.startswith("xla")}
+        if xla:
+            line[-1]["f32" if r["name"] == "match_top2" else "xla_route"] = xla
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,25 @@
 The same dataclasses, field names, defaults and order as the JAX
 package's, frozen and hashable, so a configuration written for one
 package reads the same in the other (``interop.config_to_torch`` maps a
-JAX config onto these classes by field name).  Several fields select
-between TPU code paths of the JAX package (``use_pallas``,
-``fused_detect``, ``pyramid_pallas``, ``blur_matmul``,
-``sample_block_k``, ``topk_block``, ``MatchConfig.use_pallas``); the
-port accepts them and resolves its own path from the tensors' device.
-``detect_lean`` picks the detection kernel's mode, as in the JAX
-package.
+JAX config onto these classes by field name).
+
+Routes.  ``None`` (the default) of ``SiftConfig.fused_detect``,
+``SiftConfig.use_pallas`` and ``MatchConfig.use_pallas`` keeps the
+fused route on every device: detection maps from K3, fused sampling
+(K4 or K9, duplicates by K5) and K6 at ``bf16``.  An explicit
+``False`` selects the JAX package's XLA route for that knob alone, so
+all four combinations of the two frontend knobs run:
+``fused_detect=False`` the dense DoG detector (``sift/pyramid.
+build_pyramid``, ``sift/detect.detect``), ``use_pallas=False``
+two-stage sampling (K8 histograms, the peaks, a second compaction,
+K5 for every slot), ``MatchConfig.use_pallas=False`` the f32 top-2
+(K6 with ``bf16=False``, whatever ``bf16`` says).  ``True`` is the
+fused route.  The knobs that only choose how the JAX package computes
+the same function on a TPU are accepted and ignored: ``pyramid_pallas``
+and ``blur_matmul`` (the base chain K1 + K2 computes the octave bases
+either way), ``dup_split`` (the duplicates always take their own K5
+launch), ``sample_block_k`` and ``topk_block`` (TPU tilings).
+``detect_lean`` picks K3's mode, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,16 +44,21 @@ class SiftConfig:
     orientation_duplicates: bool = True  # 2nd-peak duplication (cudaSiftD.cu:1041)
     laplace_radius: int = 4      # LAPLACE_R (cudaSiftD.h:40)
     lowpass_radius: int = 4      # LOWPASS_R (cudaSiftD.h:44)
-    use_pallas: bool | None = None  # JAX dispatch knob; the port ignores it
+    # False: two-stage sampling (K8 histograms, then K5 descriptors of
+    # the primaries and duplicates compacted together); None / True:
+    # fused sampling (K4 or K9, duplicates by K5 at slot i + K).
+    use_pallas: bool | None = None
     # Slot cap for the sampling stage: the orientation and descriptor
     # kernels and the matcher downstream scale with slots, while the
     # per-octave capacities sum to num_octaves * max_pts_per_octave of
     # which real images fill a fraction; the cap keeps the globally
     # strongest detections.  0 = no cap.
     sample_cap: int = 2560
-    blur_matmul: bool | None = None      # JAX dispatch knob; ignored
-    fused_detect: bool | None = None     # JAX dispatch knob; ignored
-    pyramid_pallas: bool | None = None   # JAX dispatch knob; ignored
+    blur_matmul: bool | None = None      # TPU banded-matmul blurs; ignored
+    # False: the dense DoG detector (blur bank, DoG volume, 26-neighbour
+    # extrema, dense refinement); None / True: K3's detection maps.
+    fused_detect: bool | None = None
+    pyramid_pallas: bool | None = None   # TPU base-chain choice; ignored
     # Windowed sampling kernel: True, "hbm" or "vmem" run K9 (each
     # keypoint's 48 x 40 patch staged in shared memory before it is
     # sampled); None, False and "blk" run K4.  Both compute the same
@@ -51,11 +68,13 @@ class SiftConfig:
     # scale gate needs the gated mode); True with lowest_scale > 0
     # raises.
     detect_lean: bool | None = None
-    # Candidate selection: only "topk" (exact, strongest first) is
-    # ported; "approx" and "compact" raise.
+    # Candidate selection in both detectors: "topk" (exact, strongest
+    # first), "approx" (the JAX package's approx_max_k; the port's exact
+    # top-k meets its recall contract) or "compact" (the first k
+    # candidates in scan order, the reference's append semantics).
     select: str = "topk"
     # Second-peak descriptors in a separate compacted launch (K5).  The
-    # port always splits them.
+    # port always splits them; ignored.
     dup_split: bool | None = None
     # Profiling truncation of the JAX package's sampling kernel; only
     # the full kernel (5) is ported.
@@ -74,7 +93,9 @@ class MatchConfig:
     max_ambiguity: float = 0.95  # ratio-test cutoff
     min_score: float = 0.0       # min correlation of best match
     mutual: bool = False         # cross-check (not in reference)
-    use_pallas: bool | None = None   # JAX dispatch knob; ignored
+    # False: the f32 top-2 (K6 with bf16=False, whatever ``bf16`` says);
+    # None / True: K6 at ``bf16``.
+    use_pallas: bool | None = None
     bf16: bool = True            # bf16 products, f32 accumulation (K6)
 
 

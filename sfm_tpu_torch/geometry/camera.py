@@ -1,9 +1,19 @@
-"""Camera intrinsics and point normalization (counterpart of
+"""Camera intrinsics, point normalization and projection (counterpart of
 ``sfm_tpu/geometry/camera.py``)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def intrinsics(fx, fy=None, cx=0.0, cy=0.0, skew=0.0, dtype=torch.float32,
+               device=None):
+    """3x3 intrinsic matrix K = [[fx, skew, cx], [0, fy, cy], [0, 0, 1]]
+    (fy = fx unless given)."""
+    if fy is None:
+        fy = fx
+    return torch.tensor([[fx, skew, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
+                        dtype=dtype, device=device)
 
 
 def inv_intrinsics(K):
@@ -27,3 +37,16 @@ def to_homogeneous(uv):
 def normalize_points(uv, K_inv):
     """x = K^{-1} u for pixel coords ``uv`` [..., 2] -> [..., 3]."""
     return to_homogeneous(uv) @ K_inv.T
+
+
+def project(X, R, t, K=None):
+    """Project world points [..., 3] by (R, t) and, if given, K: (pixel
+    or normalized-plane coordinates [..., 2], depth [...]); depths
+    within 1e-12 of zero divide by 1e-12."""
+    Xc = X @ R.T + t
+    depth = Xc[..., 2]
+    if K is not None:
+        Xc = Xc @ K.T
+    z = torch.where(depth[..., None].abs() < 1e-12,
+                    torch.full_like(Xc[..., 2:3], 1e-12), Xc[..., 2:3])
+    return Xc[..., :2] / z, depth

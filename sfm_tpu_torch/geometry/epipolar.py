@@ -1,10 +1,11 @@
-"""Eight-point constraints and epipolar residuals (counterpart of
-``sfm_tpu/geometry/epipolar.py``)."""
+"""Eight-point constraints and estimate, epipolar and Sampson residuals
+(counterpart of ``sfm_tpu/geometry/epipolar.py``)."""
 
 from __future__ import annotations
 
 import torch
 
+from sfm_tpu_torch.ops import linalg
 from sfm_tpu_torch.utils.precision import f32_matmul
 
 
@@ -13,6 +14,15 @@ def eight_point_matrix(x1, x2):
     (E flattened row-major)."""
     A = x2[..., :, None] * x1[..., None, :]
     return A.reshape(*A.shape[:-2], 9)
+
+
+@f32_matmul
+def estimate_E_8pt(x1, x2, *, sweeps: int = 10):
+    """Batched 8-point essential estimates from [..., 8, 3] minimal sets:
+    the QR null vector of each 8x9 system, projected onto singular
+    values (1, 1, 0).  Returns [..., 3, 3]."""
+    e = linalg.qr_nullvec(eight_point_matrix(x1, x2))
+    return linalg.project_to_essential(e.reshape(*e.shape[:-1], 3, 3), sweeps=sweeps)
 
 
 @f32_matmul
@@ -58,3 +68,15 @@ def epipolar_residuals(E, x1, x2):
     d2 = l2[..., 0] ** 2 + l2[..., 1] ** 2
     eps = 1e-18
     return num * (1.0 / (d1 + eps) + 1.0 / (d2 + eps))
+
+
+@f32_matmul
+def sampson_residuals(E, x1, x2):
+    """First-order (Sampson) squared epipolar error ``[..., N]`` of all
+    points against every E in ``[..., 3, 3]``."""
+    l1 = torch.einsum("...ij,nj->...ni", E, x1)
+    l2 = torch.einsum("...ji,nj->...ni", E, x2)
+    num = torch.einsum("ni,...ni->...n", x2, l1)
+    num = num * num
+    den = l1[..., 0] ** 2 + l1[..., 1] ** 2 + l2[..., 0] ** 2 + l2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-18)

@@ -1,6 +1,6 @@
 """Pose recovery from an essential matrix (counterpart of
-``sfm_tpu/geometry/pose.py``: ``pose_candidates``, ``recover_pose`` and
-the translation re-vote ``cheirality_t_vote``)."""
+``sfm_tpu/geometry/pose.py``: ``pose_candidates``, ``align_candidates``,
+``recover_pose`` and the translation re-vote ``cheirality_t_vote``)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,16 @@ def pose_candidates(E, *, sweeps: int = 8):
     Rs = torch.stack([R1, R1, R2, R2], dim=-3)
     ts = torch.stack([u3, -u3, u3, -u3], dim=-2)
     return Rs, ts
+
+
+@f32_matmul
+def align_candidates(E, R_ref, t_ref, *, sweeps: int = 8):
+    """The candidate (R, t) of E [3, 3] closest to a reference pose: the
+    argmax of trace(R_c R_ref^T) + t_c . t_ref, chosen on the device
+    (no host read)."""
+    Rs, ts = pose_candidates(E, sweeps=sweeps)
+    best = torch.argmax(torch.einsum("cij,ij->c", Rs, R_ref) + ts @ t_ref)[None]
+    return Rs.index_select(0, best)[0], ts.index_select(0, best)[0]
 
 
 @f32_matmul

@@ -26,12 +26,19 @@ def dlt_system(x1, x2, P1, P2):
 
 
 @f32_matmul
-def triangulate(x1, x2, P1, P2, *, sweeps: int = 10, w_clamp: float = 5.0):
-    """Triangulate all correspondences (fixed-sweep Gram Jacobi, the JAX
-    package's default solver).  Returns (X [..., N, 3], w [..., N],
-    finite [..., N])."""
+def triangulate(x1, x2, P1, P2, *, sweeps: int = 10, w_clamp: float = 5.0,
+                solver: str = "jacobi"):
+    """Triangulate all correspondences: the unit null vector of each 4x4
+    DLT system by ``solver="jacobi"`` (the default, ``sweeps`` Gram
+    Jacobi sweeps) or ``"adj"`` (the Gram matrix's adjugate).  Returns
+    (X [..., N, 3], w [..., N], finite [..., N])."""
+    if solver not in ("adj", "jacobi"):
+        raise ValueError(f"triangulate: unknown solver {solver!r}")
     A = dlt_system(x1, x2, P1, P2)
-    X_h = linalg.gram_nullvec(A, sweeps=sweeps)
+    if solver == "adj":
+        X_h = linalg.gram_nullvec4_adj(A)
+    else:
+        X_h = linalg.gram_nullvec(A, sweeps=sweeps)
     w = X_h[..., 3]
     tiny = torch.where(w < 0, -1e-12, 1e-12).to(w.dtype)
     denom = torch.where(w.abs() < 1e-12, tiny, w)

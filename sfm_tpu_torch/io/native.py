@@ -40,6 +40,11 @@ def _load():
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long)
     ]
     lib.sfm_pnm_size.restype = ctypes.c_int
+    lib.sfm_load_gray.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+    ]
+    lib.sfm_load_gray.restype = ctypes.c_int
     lib.sfm_load_gray_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.c_long, ctypes.c_long,
@@ -70,6 +75,25 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def load_gray(path) -> np.ndarray:
+    """[H, W] float32 grayscale of one PNM via the native decoder."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native io unavailable")
+    w = ctypes.c_long()
+    h = ctypes.c_long()
+    rc = lib.sfm_pnm_size(str(path).encode(), ctypes.byref(w), ctypes.byref(h))
+    if rc != 0:
+        raise ValueError(f"cannot parse PNM header: {path}")
+    out = np.empty((h.value, w.value), np.float32)
+    rc = lib.sfm_load_gray(str(path).encode(),
+                           out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                           ctypes.byref(w), ctypes.byref(h))
+    if rc != 0:
+        raise ValueError(f"decode failed: {path}")
+    return out
 
 
 def load_gray_batch(paths, n_threads: int = 0) -> np.ndarray:

@@ -1,17 +1,24 @@
-"""Dense image ops: Gaussian taps, bilinear sampling and the sampling
-kernels' patch geometry (counterpart of ``sfm_tpu/ops/image.py``).
+"""Dense image ops: Gaussian taps, separable filtering, resampling,
+bilinear sampling and the sampling kernels' patch geometry (counterpart
+of ``sfm_tpu/ops/image.py``).
 
 The base chain's blur, decimation and upsample are K1, K2 and K7 in
-``sfm_tpu_torch/ops/pyramid.py``: explicit f32 multiply-adds in the
-kernels and in their plain versions, so no convolution (cuDNN, TF32 by
-default on the card) is left on the frontend's path and nothing here
-needs the TF32 pin of ``sfm_tpu_torch/utils/precision.py``.
+``sfm_tpu_torch/ops/pyramid.py``.  :func:`blur`, :func:`blur_bank` and
+:func:`scale_down` are the JAX package's XLA filters, which the dense
+DoG detector runs for its blur bank: edge-clamped separable filtering as
+explicit shifted f32 multiply-adds, one PyTorch op each, so no
+convolution (cuDNN, TF32 by default on the card, whose rounding injects
+phantom DoG extrema) is on the path and the card computes the CPU's
+values bit for bit.  :func:`scale_up` is K7.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from sfm_tpu_torch.ops import pyramid as _pyr
 
 
 def gaussian_kernel(radius: int, variance: float) -> np.ndarray:
@@ -23,6 +30,60 @@ def gaussian_kernel(radius: int, variance: float) -> np.ndarray:
         k = np.exp(-(j * j) / (2.0 * variance))
     k = k / k.sum()
     return k.astype(np.float32)
+
+
+def _sep_conv(img, taps_row, taps_col):
+    """Separable filtering of [C, H, W] with per-channel taps [C, K]:
+    along W with ``taps_row``, then along H with ``taps_col``, each pass
+    over an edge-replicated pad (the JAX package's ``mode="edge"`` pad
+    and VALID convolution).  XLA's convolution and this sum both
+    correlate (no tap flip), so they agree for any taps; the Gaussian
+    taps are symmetric, where correlation and convolution are one."""
+    C, H, W = img.shape
+    t_row = torch.as_tensor(np.asarray(taps_row, np.float32).reshape(C, -1),
+                            device=img.device)
+    t_col = torch.as_tensor(np.asarray(taps_col, np.float32).reshape(C, -1),
+                            device=img.device)
+    K = t_row.shape[1]
+    r = K // 2
+
+    def taps_times(t, views):   # t[:, 0] v0 + t[:, 1] v1 + ..., left to right
+        acc = t[:, 0, None, None] * views[0]
+        for k in range(1, K):
+            acc = acc + t[:, k, None, None] * views[k]
+        return acc
+
+    x = F.pad(img[None], (r, r, 0, 0), mode="replicate")[0]
+    x = taps_times(t_row, [x[:, :, k:k + W] for k in range(K)])
+    x = F.pad(x[None], (0, 0, r, r), mode="replicate")[0]
+    return taps_times(t_col, [x[:, k:k + H, :] for k in range(K)])
+
+
+def blur(img, taps):
+    """Separable edge-clamped blur of [H, W] with 1-D taps."""
+    taps = np.asarray(taps, np.float32)
+    return _sep_conv(img[None], taps[None], taps[None])[0]
+
+
+def blur_bank(img, taps_bank):
+    """Blur [H, W] with a bank of B kernels at once -> [B, H, W]."""
+    bank = np.atleast_2d(np.asarray(taps_bank, np.float32))
+    rep = img[None].expand(bank.shape[0], *img.shape)
+    return _sep_conv(rep, bank, bank)
+
+
+def scale_down(img, variance: float = 0.5):
+    """5-tap Gaussian blur, then every second row and column from the
+    first: [H, W] -> [ceil(H / 2), ceil(W / 2)], the JAX package's
+    ``scale_down`` (the base chain's K2 keeps [H // 2, W // 2]; the two
+    agree on even sizes)."""
+    return blur(img, gaussian_kernel(2, variance))[0::2, 0::2]
+
+
+def scale_up(img):
+    """2x upsample with the reference's interleave, [H, W] -> [2H, 2W]:
+    K7 for a CUDA tensor, its plain version for a CPU one."""
+    return _pyr.scale_up(img)
 
 
 def bilinear_sample(img, x, y):

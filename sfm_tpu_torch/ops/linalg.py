@@ -1,18 +1,24 @@
 """Batched small-matrix linear algebra (counterpart of
 ``sfm_tpu/ops/linalg.py``).
 
-Only what the two-view and multi-view paths call is ported, with the
-SAME fixed-sweep algorithms: cyclic Jacobi for symmetric eigenproblems,
-the 3x3 SVD built on it (and the polar factor ``so3_project``),
-Householder QR for the minimal 8x9 null vectors and ridge inverse
-iteration for the least-squares polish.  ``torch.linalg.eigh`` or
-``svd`` are deliberately not substituted: near-degenerate 3x3s
-(the essential-matrix case s ~ (1, 1, 0)) pick their eigenvector
-directions by the algorithm, and parity with the JAX package depends
-on it.
+The SAME algorithms as the JAX package: cyclic Jacobi for symmetric
+eigenproblems, the 3x3 SVD built on it (and the polar factor
+``so3_project``), Householder QR for the minimal 8x9 null vectors,
+ridge inverse iteration for the least-squares polish, and the
+closed-form routes: ``eigh3x3`` (Cardano eigenvalues, an anchored
+cross-product eigenvector and the exact 2x2 complement problem) behind
+``svd3x3(method="analytic")``, and ``gram_nullvec4_adj`` (the adjugate
+of the 4x4 Gram matrix) behind ``triangulate(solver="adj")``.  Jacobi
+stays the default of both.  ``torch.linalg.eigh`` or ``svd`` are
+deliberately not substituted: near-degenerate 3x3s (the
+essential-matrix case s ~ (1, 1, 0)) pick their eigenvector directions
+by the algorithm, and parity with the JAX package depends on it.  The
+closed forms branch with ``torch.where`` only, never in Python.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -87,6 +93,43 @@ def gram_nullvec(A, *, sweeps: int = 10):
     return smallest_eigvec(G, sweeps=sweeps)
 
 
+def _minor3(G, rs, cs):
+    """Determinant of the 3x3 submatrix of G at rows ``rs``, columns ``cs``."""
+    return det3(torch.stack([torch.stack([G[..., r, c] for c in cs], dim=-1)
+                             for r in rs], dim=-2))
+
+
+def gram_nullvec4_adj(A):
+    """Null vector of [..., m, 4] systems from the ADJUGATE of G = A^T A.
+
+    adj(G) = det(G) G^{-1} is dominated by the smallest eigenvalue's
+    term, so its strongest column (the largest diagonal entry) is the
+    null direction: 16 cofactor 3x3 determinants instead of a Jacobi
+    chain.  G is first divided by its largest diagonal entry (the
+    cofactors are cubic in G and overflow f32 from row scales ~1e3);
+    the vector is normalized at the end, so the scale cancels.  Zero
+    systems fall back to e3 = (0, 0, 0, 1).
+    """
+    G = torch.einsum("...mi,...mj->...ij", A, A)
+    d0 = torch.diagonal(G, dim1=-2, dim2=-1).max(dim=-1).values
+    G = G / torch.where(d0 > 1e-30, d0, torch.ones_like(d0))[..., None, None]
+    idx = (0, 1, 2, 3)
+    cols = []
+    for j in range(4):
+        rs = tuple(r for r in idx if r != j)
+        cols.append(torch.stack(
+            [((-1.0) ** (i + j)) * _minor3(G, rs, tuple(c for c in idx if c != i))
+             for i in range(4)], dim=-1))   # adj(G)[:, j] (G symmetric)
+    adj = torch.stack(cols, dim=-1)                            # [..., 4, 4]
+    j = torch.argmax(torch.diagonal(adj, dim1=-2, dim2=-1), dim=-1)
+    v = torch.gather(adj, -1, j[..., None, None].expand(*adj.shape[:-1], 1))[..., 0]
+    n2 = torch.sum(v * v, dim=-1)
+    ok = n2 > 1e-36
+    den = torch.sqrt(torch.where(ok, n2, torch.ones_like(n2)))[..., None]
+    fb = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    return torch.where(ok[..., None], v / den, fb.expand(v.shape))
+
+
 @f32_matmul
 def smallest_eigvec_power(G, *, iters: int = 5):
     """Smallest eigenvector of symmetric PSD ``[..., n, n]`` matrices by
@@ -111,6 +154,103 @@ def det3(B):
         - B[..., 0, 1] * (B[..., 1, 0] * B[..., 2, 2] - B[..., 1, 2] * B[..., 2, 0])
         + B[..., 0, 2] * (B[..., 1, 0] * B[..., 2, 1] - B[..., 1, 1] * B[..., 2, 0])
     )
+
+
+def _unit(v, eps=1e-20):
+    return v / torch.sqrt(torch.clamp(torch.sum(v * v, dim=-1, keepdim=True), min=eps))
+
+
+def _eigvec_for(A, lam):
+    """Eigenvector of symmetric 3x3 ``A`` for eigenvalue ``lam``: the
+    largest cross product of two rows of A - lam I, normalized exactly
+    by its norm; a canonical axis where every cross product vanishes
+    (isotropic A, where any unit vector is one)."""
+    M = A - lam[..., None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
+    c0 = torch.linalg.cross(M[..., 0, :], M[..., 1, :])
+    c1 = torch.linalg.cross(M[..., 0, :], M[..., 2, :])
+    c2 = torch.linalg.cross(M[..., 1, :], M[..., 2, :])
+    n0 = torch.sum(c0 * c0, dim=-1)
+    n1 = torch.sum(c1 * c1, dim=-1)
+    n2 = torch.sum(c2 * c2, dim=-1)
+    c01 = torch.where((n0 >= n1)[..., None], c0, c1)
+    n01 = torch.maximum(n0, n1)
+    c = torch.where((n01 >= n2)[..., None], c01, c2)
+    n = torch.maximum(n01, n2)
+    ok = n > 1e-36
+    den = torch.sqrt(torch.where(ok, n, torch.ones_like(n)))[..., None]
+    fb = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    return torch.where(ok[..., None], c / den, fb.expand(c.shape))
+
+
+@f32_matmul
+def eigh3x3(A):
+    """Closed-form eigendecomposition of batched symmetric 3x3 matrices:
+    (w ascending [..., 3], V [..., 3, 3] orthonormal columns).
+
+    A is scaled by its largest |entry| first (the cross products are
+    quadratic in A); Cardano's eigenvalues with the ``acos`` argument
+    clamped to [-1, 1]; the cross-product eigenvector of the
+    better-separated extreme eigenvalue (the anchor), which stays
+    accurate for a near-degenerate pair such as an essential matrix's
+    s ~ (1, 1, 0); the other two from the exact 2x2 problem in the
+    anchor's complement.  The eigenvalues returned are the Rayleigh
+    quotients of the vectors, scaled back.
+    """
+    A = 0.5 * (A + A.transpose(-1, -2))
+    dt, dev = A.dtype, A.device
+    eye = torch.eye(3, dtype=dt, device=dev)
+    amax = A.abs().amax(dim=(-2, -1))
+    ascale = torch.where(amax > 1e-30, amax, torch.ones_like(amax))
+    A = A / ascale[..., None, None]
+    q = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / 3.0
+    d0 = A[..., 0, 0] - q
+    d1 = A[..., 1, 1] - q
+    d2 = A[..., 2, 2] - q
+    off2 = A[..., 0, 1] ** 2 + A[..., 0, 2] ** 2 + A[..., 1, 2] ** 2
+    p2 = d0 * d0 + d1 * d1 + d2 * d2 + 2.0 * off2
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=0.0))
+    scale = torch.where(p > 1e-30, p, torch.ones_like(p))
+    B = (A - q[..., None, None] * eye) / scale[..., None, None]
+    r = torch.clamp(det3(B) / 2.0, -1.0, 1.0)
+    phi = torch.acos(r) / 3.0
+    lmax = q + 2.0 * p * torch.cos(phi)
+    lmin = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    lmid = 3.0 * q - lmax - lmin
+
+    use_max = (lmax - lmid) >= (lmid - lmin)
+    v_anchor = _eigvec_for(A, torch.where(use_max, lmax, lmin))
+    # Orthonormal basis {u, w} of the anchor's complement.
+    ref = torch.where((v_anchor[..., 0].abs() < 0.9)[..., None],
+                      eye[0].expand(v_anchor.shape), eye[1].expand(v_anchor.shape))
+    u = _unit(torch.linalg.cross(v_anchor, ref))
+    w = torch.linalg.cross(v_anchor, u)
+    Au = torch.einsum("...ij,...j->...i", A, u)
+    Aw = torch.einsum("...ij,...j->...i", A, w)
+    s00 = torch.sum(u * Au, dim=-1)
+    s01 = torch.sum(u * Aw, dim=-1)
+    s11 = torch.sum(w * Aw, dim=-1)
+    theta = 0.5 * torch.atan2(2.0 * s01, s00 - s11)
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    e0 = c[..., None] * u + s[..., None] * w
+    e1 = -s[..., None] * u + c[..., None] * w
+    mu0 = s00 * c * c + 2.0 * s01 * c * s + s11 * s * s
+    mu1 = s00 * s * s - 2.0 * s01 * c * s + s11 * c * c
+    swap = mu0 > mu1
+    e_lo = torch.where(swap[..., None], e1, e0)
+    e_hi = torch.where(swap[..., None], e0, e1)
+    mu_lo = torch.where(swap, mu1, mu0)
+    mu_hi = torch.where(swap, mu0, mu1)
+    # Columns ascending: anchor = max -> (e_lo, e_hi, anchor); anchor =
+    # min -> (anchor, e_lo, e_hi).
+    um = use_max[..., None]
+    V = torch.stack([torch.where(um, e_lo, v_anchor), torch.where(um, e_hi, e_lo),
+                     torch.where(um, v_anchor, e_hi)], dim=-1)
+    lam_a = torch.sum(v_anchor * torch.einsum("...ij,...j->...i", A, v_anchor), dim=-1)
+    w_out = torch.stack([torch.where(use_max, mu_lo, lam_a),
+                         torch.where(use_max, mu_hi, mu_lo),
+                         torch.where(use_max, lam_a, mu_hi)], dim=-1)
+    return w_out * ascale[..., None], V
 
 
 @f32_matmul
@@ -162,12 +302,17 @@ def _align_v2(E, V, u2):
 
 
 @f32_matmul
-def svd3x3(E, *, sweeps: int = 8):
-    """Batched 3x3 SVD ``E = U diag(s) V^T``, s descending, via the
-    fixed-sweep Jacobi eigendecomposition of E^T E (the JAX package's
-    default ``method="jacobi"``)."""
+def svd3x3(E, *, sweeps: int = 8, method: str = "jacobi"):
+    """Batched 3x3 SVD ``E = U diag(s) V^T``, s descending, from the
+    eigendecomposition of E^T E: ``method="jacobi"`` (the default,
+    ``sweeps`` cyclic Jacobi sweeps) or ``"analytic"`` (``eigh3x3``)."""
+    if method not in ("analytic", "jacobi"):
+        raise ValueError(f"svd3x3: unknown method {method!r}")
     G = torch.einsum("...ji,...jk->...ik", E, E)
-    w, V = jacobi_eigh(G, sweeps=sweeps, sort=True)
+    if method == "analytic":
+        w, V = eigh3x3(G)
+    else:
+        w, V = jacobi_eigh(G, sweeps=sweeps, sort=True)
     w = torch.flip(w, dims=(-1,))
     V = torch.flip(V, dims=(-1,))
     s = torch.sqrt(torch.clamp(w, min=0.0))

@@ -24,13 +24,17 @@ from sfm_tpu_torch.sift.match import Matches, ratio_test
 _NEG = -2.0  # the running values' start (ops/match.py)
 
 
-def dist_match_top2(desc1, desc2_sh, valid2_sh, mesh: Mesh, *, bf16: bool = True):
+def dist_match_top2(desc1, desc2_sh, valid2_sh, mesh: Mesh, *,
+                    use_pallas: bool | None = None, bf16: bool = True):
     """Top-2 matching of ``desc1`` [N1, 128] (replicated) against the
     rank's block ``desc2_sh`` [N2 / D, 128] of the right set, with its
     validity ``valid2_sh``.  Returns (best, second, index int32) over
-    the whole right set, with global indices, on every rank."""
+    the whole right set, with global indices, on every rank.
+    ``use_pallas=False`` runs the f32 top-2 on each block whatever
+    ``bf16`` says, as the JAX package does."""
     n2_loc = desc2_sh.shape[0]
-    best, second, idx = match_top2(desc1, desc2_sh, valid2_sh, bf16=bf16)
+    best, second, idx = match_top2(desc1, desc2_sh, valid2_sh,
+                                   bf16=bf16 and use_pallas is not False)
     # One gather of [N1, 3] float64, which holds the f32 scores and the
     # indices (< 2^53) exactly.
     gidx = idx.to(torch.int64) + mesh.rank * n2_loc
@@ -66,5 +70,5 @@ def dist_match(desc1, desc2, valid1=None, valid2=None,
     if valid2 is None:
         valid2 = torch.ones(desc2.shape[0], dtype=torch.bool, device=dev)
     top2 = dist_match_top2(desc1, put_sharded(mesh, desc2), put_sharded(mesh, valid2),
-                           mesh, bf16=cfg.bf16)
+                           mesh, use_pallas=cfg.use_pallas, bf16=cfg.bf16)
     return ratio_test(*top2, valid1, cfg)

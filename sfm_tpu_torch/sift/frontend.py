@@ -1,25 +1,35 @@
-"""SIFT frontend: base chain ([K7,] K1, K2) -> detection maps of all
-octaves (one K3 launch per 8 octaves) and per-octave top-k -> atlas -> fused
-orientation + descriptor sampling (K4, or K9 with ``sample_window``) ->
-duplicate descriptors (K5) (counterpart of ``sfm_tpu/sift/frontend.py``).
+"""SIFT frontend (counterpart of ``sfm_tpu/sift/frontend.py``): the base
+chain ([K7,] K1 + K2 in one launch), per-octave detection and selection,
+the octave atlas, then orientation and descriptor sampling.
 
-The port follows the JAX package's Pallas branch on every device:
-octave bases are packed into one atlas with 48-row edge-replicated
-guards, detections are capped to the ``sample_cap`` globally strongest
+Two routes for each of the two stages, picked by the configuration as
+the JAX package picks them (``config.py``): ``None`` or ``True`` keeps
+the fused route, an explicit ``False`` selects the XLA route, each knob
+on its own.
+
+- Detection, ``fused_detect``: K3's maps of all octaves (one launch per
+  8 octaves; octave o gated at ``lowest_scale / 2**o``, ``detect_lean``
+  picks K3's mode) and the per-octave selection; or with ``False`` the
+  dense DoG detector, octave by octave on the chain's bases
+  (``pyramid.build_octave``, ``detect.detect``), each DoG volume freed
+  before the next is built.
+- Sampling, ``use_pallas``: the fused kernel K4 (or K9 with
+  ``sample_window`` True, "hbm" or "vmem", K4's function bit for bit;
+  None, False and "blk", the JAX package's paged-atlas form, run K4) on
+  every slot, then the second-peak duplicates compacted and sampled by
+  K5 into a fixed second half (slot i + K); or with ``False`` two
+  stages: K8's histograms and ``orient.orientations_from_histograms``,
+  then primaries and duplicates compacted together (valid first,
+  stable) and K5 on every slot.
+
+Octave bases are packed into one atlas with 48-row edge-replicated
+guards; detections are capped to the ``sample_cap`` globally strongest
 slots (over more than 16,384 slots: a rank-major interleave of the
-octaves), K4 samples every slot, and the second-peak duplicates are
-compacted and sampled by K5 into a fixed second half (slot i + K) —
-no re-compaction.  ``sample_window`` True, "hbm" or "vmem" samples
-through K9, which stages each keypoint's support box in shared memory
-and computes K4's function bit for bit; None, False and "blk" (the JAX
-package's paged-atlas form of K4) run K4.  With ``up_scale`` the image
-is upsampled 2x before the prefilter and keypoints are halved back to
-input pixels at the end.  ``lowest_scale > 0`` runs K3's gated mode
-with the scale gate ``lowest_scale / 2**o`` in octave o; ``detect_lean``
-picks K3's mode as in the JAX package.  The TPU-only dispatch knobs
-(``use_pallas``, ``fused_detect``, ``pyramid_pallas``, ``blur_matmul``,
-``dup_split``, ``sample_block_k``, ``topk_block``) are resolved by the
-port from the tensors' device.
+octaves).  With ``up_scale`` the image is upsampled 2x before the
+prefilter and keypoints are halved back to input pixels at the end.
+The JAX package's TPU dispatch knobs ``pyramid_pallas``,
+``blur_matmul``, ``dup_split``, ``sample_block_k`` and ``topk_block``
+compute the same function either way and are ignored.
 """
 
 from __future__ import annotations
@@ -35,8 +45,9 @@ from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.ops.compact import compaction_order, stable_topk_indices
 from sfm_tpu_torch.ops.detect import detect_maps_octaves
 from sfm_tpu_torch.ops.sample import (descriptor_sample, fused_orient_descriptor,
-                                     fused_orient_descriptor_win)
-from sfm_tpu_torch.sift import describe, detect as detect_mod, pyramid
+                                     fused_orient_descriptor_win,
+                                     orientation_histogram_sample)
+from sfm_tpu_torch.sift import describe, detect as detect_mod, orient, pyramid
 
 _GUARD = 48  # vertical guard rows between octaves (>= descriptor patch)
 # sample_window -> the fused sampling kernel, the same function either
@@ -70,8 +81,7 @@ class SiftResult(NamedTuple):
 
 def check_supported(cfg: SiftConfig):
     """Raise for configuration knobs this port does not implement."""
-    if cfg.select != "topk":
-        raise NotImplementedError(f"select={cfg.select!r}: only 'topk' is ported")
+    detect_mod.check_select(cfg)
     if cfg.sample_window not in _SAMPLE_WINDOWS:
         raise ValueError(f"sample_window={cfg.sample_window!r}: expected one of "
                          f"{sorted(map(repr, _SAMPLE_WINDOWS))}")
@@ -129,20 +139,27 @@ def _tap_banks(cfg: SiftConfig) -> np.ndarray:
 
 
 def detect_stage(img, cfg: SiftConfig):
-    """Base chain, detection maps of every octave (one K3 launch per 8
-    octaves; octave o gated at ``lowest_scale / 2**o``), the per-octave
-    top-k selection and the atlas.  Returns (atlas, detections with y in
-    atlas rows)."""
+    """Base chain, detection of every octave and the atlas: K3's maps
+    (one launch per 8 octaves; octave o gated at ``lowest_scale /
+    2**o``) and the per-octave selection, or with ``fused_detect=False``
+    the dense DoG detector octave by octave.  Returns (atlas, detections
+    with y in atlas rows)."""
     bases = pyramid.base_chain(img, cfg)
     offsets, subs = atlas_layout(img.shape, cfg)
-    maps = detect_maps_octaves(bases, _tap_banks(cfg), float(cfg.thresh),
-                               float(cfg.edge_limit),
-                               [float(cfg.lowest_scale / s) for s in subs],
-                               cfg.detect_lean)
-    dets = []
-    for o, ((resp, aux), off) in enumerate(zip(maps, offsets)):
-        d = detect_mod.select_from_maps(resp, aux, _octave_cfg(cfg, o))
-        dets.append(d._replace(y=d.y + off))
+    if cfg.fused_detect is False:
+        dets = []
+        for o, (base, sub) in enumerate(zip(bases, subs)):
+            dog = pyramid.build_octave(base, cfg, o, sub).dog
+            dets.append(detect_mod.detect(dog, _octave_cfg(cfg, o), sub))
+            del dog   # the volume goes before the next octave's is built
+    else:
+        maps = detect_maps_octaves(bases, _tap_banks(cfg), float(cfg.thresh),
+                                   float(cfg.edge_limit),
+                                   [float(cfg.lowest_scale / s) for s in subs],
+                                   cfg.detect_lean)
+        dets = [detect_mod.select_from_maps(resp, aux, _octave_cfg(cfg, o))
+                for o, (resp, aux) in enumerate(maps)]
+    dets = [d._replace(y=d.y + off) for d, off in zip(dets, offsets)]
     return build_atlas(bases), dets
 
 
@@ -179,57 +196,78 @@ def _sample_order(valid, sharp, cap: int, seg=None):
     return perm[compaction_order(valid[perm])[:cap]]
 
 
-def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
-    """Orientation + descriptors for every detection slot (K4, K5)."""
-    dev = atlas.device
-    x_a = torch.cat([d.x for d in dets])
-    y_a = torch.cat([d.y for d in dets])
-    sc_a = torch.cat([d.scale for d in dets])
-    sharp_a = torch.cat([d.sharpness for d in dets])
-    edge_a = torch.cat([d.edgeness for d in dets])
-    valid_a = torch.cat([d.valid for d in dets])
-    n = [d.x.shape[0] for d in dets]
-    oct_a = torch.cat([torch.full((k,), i, dtype=torch.int64, device=dev)
-                       for i, k in enumerate(n)])
-    sub_a = torch.cat([torch.full((k,), s, dtype=torch.float32, device=dev)
-                       for k, s in zip(n, subs)])
-    off_a = torch.cat([torch.full((k,), float(o), dtype=torch.float32, device=dev)
-                       for k, o in zip(n, offsets)])
-
-    order = _sample_order(valid_a, sharp_a, cfg.sample_cap, n)
-    x_a, y_a, sc_a, sharp_a, edge_a, valid_a, oct_a, sub_a, off_a = (
-        a[order] for a in (x_a, y_a, sc_a, sharp_a, edge_a, valid_a, oct_a,
-                           sub_a, off_a))
-    count = valid_a.sum().to(torch.int32)
-
+def _fused_sampling(atlas, x, y, sc, valid, cfg: SiftConfig):
+    """K4 (or K9) on every slot, then the duplicates compacted and
+    sampled by K5 into the second half: (raw descriptors [2K, 128],
+    orientations [2K], validity [2K]) in slot order i, then i + K."""
+    count = valid.sum().to(torch.int32)
     fused = _SAMPLE_WINDOWS[cfg.sample_window]
-    d1, ori1, ori2, dup = fused(atlas, x_a, y_a, sc_a, count=count)
-    valid2 = dup & valid_a
+    d1, ori1, ori2, dup = fused(atlas, x, y, sc, count=count)
+    valid2 = dup & valid
     d2 = torch.zeros_like(d1)
     if cfg.orientation_duplicates:
         order_d = compaction_order(valid2)
         d2[order_d] = descriptor_sample(
-            atlas, x_a[order_d], y_a[order_d], sc_a[order_d], ori2[order_d],
+            atlas, x[order_d], y[order_d], sc[order_d], ori2[order_d],
             count=valid2.sum().to(torch.int32))
     else:
         valid2 = torch.zeros_like(valid2)
-    valid_2 = torch.cat([valid_a, valid2])
-    desc = describe.normalize_descriptors(torch.cat([d1, d2]))
-    desc = desc * valid_2[:, None]
+    return (torch.cat([d1, d2]), torch.cat([ori1, ori2]),
+            torch.cat([valid, valid2]))
 
-    def two(a):  # slot i and its duplicate slot i + K
-        return torch.cat([a, a])
 
-    sub_2, off_2 = two(sub_a), two(off_a)
+def _two_stage_sampling(atlas, x, y, sc, valid, cfg: SiftConfig):
+    """K8's histograms of the valid-first slots and their peaks, then
+    primaries and second-peak duplicates compacted together (valid
+    first, stable) and K5 on every slot: (raw descriptors [2K, 128],
+    orientations [2K], validity [2K], the second compaction's order
+    over the doubled slots)."""
+    h = orientation_histogram_sample(atlas, x, y, sc, count=valid.sum().to(torch.int32))
+    ori1, ori2, valid2 = orient.orientations_from_histograms(
+        h, valid, duplicates=cfg.orientation_duplicates)
+    valid_2 = torch.cat([valid, valid2 & valid])
+    order2 = compaction_order(valid_2)
+    ori_2 = torch.cat([ori1, ori2])[order2]
+    valid_2 = valid_2[order2]
+    raw = descriptor_sample(atlas, *(torch.cat([a, a])[order2] for a in (x, y, sc)),
+                            ori_2, count=valid_2.sum().to(torch.int32))
+    return raw, ori_2, valid_2, order2
+
+
+def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
+    """Orientation and descriptors of every detection slot: fused (K4 or
+    K9, K5) or, with ``use_pallas=False``, two-stage (K8, K5)."""
+    dev = atlas.device
+    n = [d.x.shape[0] for d in dets]
+    fields = {f: torch.cat([getattr(d, f) for d in dets])
+              for f in ("x", "y", "scale", "sharpness", "edgeness", "valid")}
+    fields["octave"] = torch.cat([torch.full((k,), i, dtype=torch.int64, device=dev)
+                                  for i, k in enumerate(n)])
+    fields["sub"] = torch.cat([torch.full((k,), s, dtype=torch.float32, device=dev)
+                               for k, s in zip(n, subs)])
+    fields["off"] = torch.cat([torch.full((k,), float(o), dtype=torch.float32, device=dev)
+                               for k, o in zip(n, offsets)])
+    order = _sample_order(fields["valid"], fields["sharpness"], cfg.sample_cap, n)
+    f = {k: v[order] for k, v in fields.items()}
+    if cfg.use_pallas is False:
+        raw, ori, valid, order2 = _two_stage_sampling(
+            atlas, f["x"], f["y"], f["scale"], f["valid"], cfg)
+        f = {k: torch.cat([v, v])[order2] for k, v in f.items()}
+    else:   # slot i and its duplicate slot i + K
+        raw, ori, valid = _fused_sampling(atlas, f["x"], f["y"], f["scale"],
+                                          f["valid"], cfg)
+        f = {k: torch.cat([v, v]) for k, v in f.items()}
+    desc = describe.normalize_descriptors(raw) * valid[:, None]
+    sub = f["sub"]
     kp = Keypoints(
-        x=two(x_a) * sub_2,
-        y=(two(y_a) - off_2) * sub_2,
-        scale=two(sc_a) * sub_2,
-        sharpness=two(sharp_a),
-        edgeness=two(edge_a),
-        orientation=torch.cat([ori1, ori2]),
-        octave=two(oct_a),
-        valid=valid_2,
+        x=f["x"] * sub,
+        y=(f["y"] - f["off"]) * sub,
+        scale=f["scale"] * sub,
+        sharpness=f["sharpness"],
+        edgeness=f["edgeness"],
+        orientation=ori,
+        octave=f["octave"],
+        valid=valid,
     )
     if cfg.up_scale:
         # Back to input-image pixels (reference RescalePositions(0.5)).

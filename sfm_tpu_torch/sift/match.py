@@ -1,7 +1,10 @@
 """Brute-force descriptor matching with top-2 ratio test (counterpart of
 ``sfm_tpu/sift/match.py``).  The top-2 search is K6
-(``sfm_tpu_torch/ops/match.py``); ``MatchConfig.use_pallas`` is a TPU
-dispatch knob and is resolved here from the tensors' device."""
+(``sfm_tpu_torch/ops/match.py``) on the card and its plain version on
+the CPU.  ``MatchConfig.use_pallas=False`` selects the JAX package's
+XLA route, the f32 top-2 (:func:`match_descriptors_top2`, K6 in its
+f32 mode), whatever ``bf16`` says; ``None`` and ``True`` run K6 at
+``bf16``."""
 
 from __future__ import annotations
 
@@ -20,6 +23,17 @@ class Matches(NamedTuple):
     valid: torch.Tensor      # [N1] passes masks + thresholds
 
 
+def match_descriptors_top2(desc1, desc2, valid2=None, *, chunk: int = 2048):
+    """Running top-2 correlation of [N1, 128] against [N2, 128] in f32:
+    (best, second, index int32), lowest index on ties, invalid columns
+    of ``valid2`` never chosen.  K6 with ``bf16=False`` (full-f32 FMAs,
+    never TF32) for CUDA tensors, its plain version for CPU tensors.
+    ``chunk``, the JAX package's column block, does not change the
+    result; the kernel and its plain version tile on their own."""
+    del chunk
+    return match_top2(desc1, desc2, valid2, bf16=False)
+
+
 def match(desc1, desc2, valid1=None, valid2=None,
           cfg: MatchConfig = MatchConfig()) -> Matches:
     """Match [N1, 128] against [N2, 128]: argmax correlation, ratio
@@ -27,9 +41,10 @@ def match(desc1, desc2, valid1=None, valid2=None,
     n1 = desc1.shape[0]
     if valid1 is None:
         valid1 = torch.ones(n1, dtype=torch.bool, device=desc1.device)
-    m = ratio_test(*match_top2(desc1, desc2, valid2, bf16=cfg.bf16), valid1, cfg)
+    bf16 = cfg.bf16 and cfg.use_pallas is not False   # False: the f32 top-2
+    m = ratio_test(*match_top2(desc1, desc2, valid2, bf16=bf16), valid1, cfg)
     if cfg.mutual:
-        _, _, ridx = match_top2(desc2, desc1, valid1, bf16=cfg.bf16)
+        _, _, ridx = match_top2(desc2, desc1, valid1, bf16=bf16)
         m = m._replace(valid=m.valid & (ridx.to(torch.int64)[m.index]
                                         == torch.arange(n1, device=desc1.device)))
     return m

@@ -1,6 +1,10 @@
 """Orientation assignment with dual-peak keypoint duplication
 (counterpart of ``sfm_tpu/sift/orient.py``).
 
+``orientation_histograms`` is the JAX package's gather-path function,
+computed by K8 (``ops.sample.orientation_histogram_sample``) on the card
+and by K8's plain version on the CPU; the two-stage sampling route
+(``SiftConfig.use_pallas=False``) runs it.
 ``assign_orientations`` takes the JAX package's Pallas route on every
 device: valid keypoints are compacted first, K8
 (``ops.sample.orientation_histogram_sample``; its plain version for CPU
@@ -50,6 +54,15 @@ def patch_histograms(img, x0, y0a, fx, fy, scale, P: int = DESC_P):
     bins = torch.where(bins > 31.0, torch.zeros_like(bins), bins)
     onehot = (bins[..., None] == torch.arange(_N_BINS, device=dev)).to(torch.float32)
     return torch.einsum("ks,ksb->kb", grad * w, onehot)
+
+
+def orientation_histograms(img, x, y, scale):
+    """[K, 32] raw gradient orientation histograms around keypoints at
+    (x, y, scale) on ``img`` (an octave base or the atlas): K8 for a
+    CUDA tensor, its plain version for a CPU one."""
+    from sfm_tpu_torch.ops.sample import orientation_histogram_sample
+
+    return orientation_histogram_sample(img, x, y, scale)
 
 
 def smooth_histogram(h):

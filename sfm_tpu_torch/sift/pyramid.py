@@ -1,6 +1,7 @@
-"""Octave bases and per-octave blur taps (counterpart of
-``sfm_tpu/sift/pyramid.py``: ``octave_base_blurs``,
-``octave_kernel_bank``, ``lowpass`` and ``base_chain_pallas``).
+"""Octave bases, per-octave blur taps and the dense DoG pyramid
+(counterpart of ``sfm_tpu/sift/pyramid.py``: ``octave_base_blurs``,
+``octave_kernel_bank``, ``lowpass``, ``base_chain_pallas``, ``Octave``,
+``build_octave`` and ``build_pyramid``).
 
 The base chain always takes the JAX package's Pallas route: K7
 ``scale_up`` when ``up_scale``, then K1 (the ``init_blur`` prefilter)
@@ -10,14 +11,22 @@ kernel launch per image (``sfm_tpu_torch/ops/pyramid.py:base_chain``).
 tensors always go through the kernels, CPU tensors through their plain
 versions.  Octave o has shape ``[H_0 // 2**o, W_0 // 2**o]`` (floor at
 every step), which is what ``frontend.atlas_layout`` assumes.
+
+The dense route (``SiftConfig.fused_detect=False``) takes its octave
+bases from the same chain, which computes the JAX package's XLA
+``lowpass`` and ``scale_down`` descent, and builds each octave's
+``[S+3]`` blur bank (``ops.image.blur_bank``) and its ``[S+2]`` DoG
+volume in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from sfm_tpu_torch.config import SiftConfig
 from sfm_tpu_torch.ops import image as imops
@@ -66,3 +75,28 @@ def base_chain(img, cfg: SiftConfig) -> list:
         img = pyr.scale_up(img)
     lp, sd = chain_taps(cfg.lowpass_radius, cfg.init_blur)
     return pyr.base_chain(img, lp, sd, cfg.num_octaves)
+
+
+class Octave(NamedTuple):
+    base: torch.Tensor   # [H, W] octave base image (for gradients)
+    dog: torch.Tensor    # [S+2, H, W] difference-of-Gaussian planes
+    subsampling: float   # coordinate scale back to input pixels
+
+
+def build_octave(base, cfg: SiftConfig, octave_index: int,
+                 subsampling: float) -> Octave:
+    """The octave's [S+3] blur bank of ``base`` and its DoG volume
+    ``bank[1:] - bank[:-1]``."""
+    bank = imops.blur_bank(base, octave_kernel_bank(cfg, octave_index))
+    return Octave(base=base, dog=bank[1:] - bank[:-1], subsampling=subsampling)
+
+
+def build_pyramid(img, cfg: SiftConfig) -> list:
+    """Every octave of ``img``, finest (subsampling 1) first: the base
+    chain ([K7,] K1 + K2 in one launch), then each octave's blur bank
+    and DoG.  The JAX package's banded-matrix argument is a TPU
+    representation of the same blurs and has no counterpart.  Each DoG
+    volume is [S+2, H_o, W_o] f32: the frontend builds and detects one
+    octave at a time instead of holding them all."""
+    bases = base_chain(img, cfg)
+    return [build_octave(b, cfg, o, float(2 ** o)) for o, b in enumerate(bases)]

@@ -4,11 +4,14 @@ PyTorch returns from a CUDA call before the card has finished, so a
 host clock measures only the enqueue unless it waits for the device.
 ``sync`` waits with ``torch.cuda.synchronize`` on the devices of the
 tensors it is given; ``StageTimer`` accumulates host-clock stage times
-of synchronized work into a metrics dict.
+of synchronized work into a metrics dict; ``measure_rtt`` gives the
+host's round trip to a device, which a chained timing of several
+dispatches subtracts once.
 """
 
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 
 import torch
@@ -32,6 +35,20 @@ def sync(x):
     for dev in {t.device for t in _tensors(x) if t.is_cuda}:
         torch.cuda.synchronize(dev)
     return x
+
+
+def measure_rtt(n: int = 5, device="cuda") -> float:
+    """Round-trip latency to ``device`` in milliseconds: one warm-up,
+    then the least over ``n`` round trips of a trivial dispatch and its
+    read back to the host."""
+    one = torch.ones((), device=device)
+    float(one)
+    rtt = float("inf")
+    for i in range(n):
+        t0 = time.perf_counter()
+        float(one + i)
+        rtt = min(rtt, (time.perf_counter() - t0) * 1e3)
+    return rtt
 
 
 class StageTimer:

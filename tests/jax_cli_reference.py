@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """The JAX package's reference numbers that ``chip_smoke.py`` gates the
-port against, measured on the CPU (JAX's CPU route).
+port against, measured on the CPU.
+
+Every part runs the JAX package's XLA route: on the CPU its auto rules
+resolve ``SiftConfig.use_pallas``, ``fused_detect`` and
+``pyramid_pallas`` and ``MatchConfig.use_pallas`` to False (the dense
+DoG detector, two-stage sampling, the f32 chunked top-2), and the
+``xla`` part sets them to False explicitly.
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python3 tests/jax_cli_reference.py \\
-        [--seeds 8] [--parts reconstruct,default,sift,upscale,incremental,turntable]
+        [--seeds 8] [--parts reconstruct,default,sift,upscale,incremental,turntable,xla]
 
 Parts, each printing one JSON line per run:
 
@@ -48,7 +54,15 @@ Parts, each printing one JSON line per run:
   tool's metrics (the ``tt_*`` keys, steps, total, circle fit, the
   far-field-filtered PLY count), the per-step spread, and the median
   and largest rotation error of the final poses against the rendered
-  ones (projected onto SO(3) first).
+  ones (projected onto SO(3) first);
+- ``xla``: ``two_view_pipeline`` at bench.py's configuration
+  (``chip_smoke.slice_config``'s fields: 1,024 points per octave, 1,536
+  hypotheses at 3e-6, chunk 256, ``tvote_rounds=0``) with
+  ``SiftConfig(fused_detect=False, use_pallas=False)`` and
+  ``MatchConfig(use_pallas=False)`` on the float
+  ``synthetic_pair(576, 720, seed=0)``, ``PRNGKey(seed)`` for each seed:
+  each seed's matches, inliers, valid points, reprojection px and pose
+  errors against the rendered pose, then the medians.
 """
 
 from __future__ import annotations
@@ -71,7 +85,8 @@ sys.path[:0] = [os.path.dirname(HERE), HERE]
 from synthetic_pair import (homography_grid_errors, pose_errors_deg,  # noqa: E402
                             rotation_pair, synthetic_pair, transfer_px, write_pgm)
 
-PARTS = ("reconstruct", "default", "sift", "upscale", "incremental", "turntable")
+PARTS = ("reconstruct", "default", "sift", "upscale", "incremental", "turntable",
+         "xla")
 
 
 def reconstruct(d, seeds):
@@ -296,6 +311,38 @@ def turntable(d):
         "turntable_seconds": t_tt}}), flush=True)
 
 
+def xla(seeds):
+    import jax
+    import jax.numpy as jnp
+
+    from sfm_tpu.config import MatchConfig, PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu.models import two_view
+
+    pair = synthetic_pair(576, 720, seed=0)
+    cfg = PipelineConfig(
+        sift=SiftConfig(max_pts_per_octave=1024, fused_detect=False, use_pallas=False),
+        match=MatchConfig(use_pallas=False),
+        ransac=RansacConfig(n_hyps=1536, threshold=3e-6, chunk=256),
+        tvote_rounds=0)
+    img1, img2, K = (jnp.asarray(pair[k]) for k in ("img1", "img2", "K"))
+    rows = []
+    for seed in range(seeds):
+        r = two_view.two_view_pipeline(img1, img2, K, jax.random.PRNGKey(seed), cfg)
+        rot, tdir = pose_errors_deg(np.array(r.R), np.array(r.t), pair["R"], pair["t"])
+        rows.append({"seed": seed, "matches": int(r.num_matches),
+                     "inliers": int(r.num_inliers),
+                     "valid": int(np.array(r.point_valid).sum()),
+                     "px": float(np.sqrt(float(r.reproj_err) / 2) * pair["K"][0, 0]),
+                     "rot_deg": rot, "tdir_deg": tdir})
+        print(json.dumps({"jax_xla_route": rows[-1]}), flush=True)
+    if rows:
+        med = {k: statistics.median(r[k] for r in rows)
+               for k in ("matches", "inliers", "valid", "px", "rot_deg", "tdir_deg")}
+        med["worst_rot_deg"] = max(r["rot_deg"] for r in rows)
+        med["worst_tdir_deg"] = max(r["tdir_deg"] for r in rows)
+        print(json.dumps({"jax_xla_route_medians": med}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, default=8)
@@ -318,6 +365,8 @@ def main() -> int:
             incremental(d)
         if "turntable" in parts:
             turntable(d)
+        if "xla" in parts:
+            xla(args.seeds)
     return 0
 
 

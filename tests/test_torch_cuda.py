@@ -18,7 +18,11 @@ ranges of the split grid too) is held exactly.  K3's one-launch
 multi-octave form equals its per-octave launches and the plain version
 bit for bit, in both modes (lean, and gated with its dense solve and
 scale gate), at 4 to 13 planes, at 14 and 19 (the run-time-plane
-route) and past 8 octaves (one launch per 8).
+route) and past 8 octaves (one launch per 8).  On the XLA routes
+(``fused_detect=False``, ``use_pallas=False``, the f32 matcher) the
+dense DoG equals the CPU's bit for bit, ``extract_sift`` matches the
+CPU's to 1e-3 px with no K3, K4 or K9 launch, and K6's f32 mode holds
+its scores to 1e-5 with the same index wherever the best is clear.
 """
 
 import dataclasses
@@ -938,3 +942,148 @@ def test_two_ranks_sharing_the_card_over_gloo(dev):
     c = results[0]["ba/cg/costs"]
     assert np.isfinite(c).all() and np.all(np.diff(c) <= 0)
     assert abs(c[-1] / float(costs[-1]) - 1) <= 1e-3
+
+
+# ---- the XLA routes (fused_detect=False, use_pallas=False, the f32 matcher)
+
+XLA_SIFT = dict(num_octaves=3, max_pts_per_octave=512, fused_detect=False,
+                use_pallas=False)
+
+
+def test_dense_dog_on_cuda_equals_cpu(dev, pair):
+    """build_pyramid on the card: the chain's bases and the blur bank's
+    DoG (explicit shifted f32 multiply-adds, no cuDNN) equal the CPU's
+    bit for bit, with and without up_scale."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.sift import pyramid
+
+    for up_scale in (False, True):
+        cfg = SiftConfig(**XLA_SIFT, up_scale=up_scale)
+        img = torch.as_tensor(pair["img1"])
+        for g, c in zip(pyramid.build_pyramid(img.to(dev), cfg),
+                        pyramid.build_pyramid(img, cfg)):
+            assert torch.equal(g.base.cpu(), c.base)
+            assert torch.equal(g.dog.cpu(), c.dog)
+
+
+@pytest.mark.parametrize("fused_detect,use_pallas", [(False, False), (False, True),
+                                                     (True, False)])
+def test_xla_route_extract_sift_on_cuda_matches_cpu(dev, pair, fused_detect,
+                                                    use_pallas):
+    """extract_sift on the card against the CPU for the routes with an
+    XLA knob: equal counts and validity; on the dense route keypoints
+    within 1e-3 px and descriptors corr > 0.999 slot by slot, on K3's
+    maps 99% of the keypoints within 1e-3 px as a set; two-stage
+    sampling launches the base chain, K8 and K5 once each and never K4
+    or K9, and the dense route never K3."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.sift import frontend
+
+    cfg = SiftConfig(**{**XLA_SIFT, "fused_detect": fused_detect,
+                        "use_pallas": use_pallas})
+    img = torch.as_tensor(pair["img1"])
+    _cuda.reset_launches()
+    g = frontend.extract_sift(img.to(dev), cfg)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    c = frontend.extract_sift(img, cfg)
+    gk, ck = g.keypoints, c.keypoints
+    v = ck.valid
+    assert int(v.sum()) > 500
+    assert torch.equal(gk.valid.cpu(), v)
+    if fused_detect:
+        # K3's responses on the card and the CPU differ in the last bits,
+        # so two near-equal ones may swap their slots: as sets.
+        pg = torch.stack([gk.x.cpu(), gk.y.cpu()], -1)[v]
+        pc = torch.stack([ck.x, ck.y], -1)[v]
+        d = torch.cdist(pg, pc, compute_mode="donot_use_mm_for_euclid_dist")
+        assert float((d.min(dim=1).values <= 1e-3).float().mean()) >= 0.99
+    else:
+        d = torch.hypot(gk.x.cpu() - ck.x, gk.y.cpu() - ck.y)[v]
+        assert float(d.max()) <= 1e-3
+        assert float((g.descriptors.cpu() * c.descriptors).sum(1)[v].min()) > 0.999
+    assert launches["base_chain"] == 1
+    assert launches["detect_maps"] == (1 if fused_detect else 0)
+    if use_pallas is False:
+        assert (launches["orientation_histogram_sample"], launches["descriptor_sample"],
+                launches["fused_orient_descriptor"],
+                launches["fused_orient_descriptor_win"]) == (1, 1, 0, 0)
+
+
+def test_xla_route_kernels_match_plain_at_its_shapes(dev, pair):
+    """K8 on the route's capped slots, K5 on its 2K compacted slots and
+    K6 in its f32 mode on its descriptor sets, against their plain
+    versions: K8 within 1e-6 of the largest bin, K5 to 1e-5 and corr >
+    0.9999, K6 f32 scores within 1e-5 and the same index wherever the
+    best leads the second by more than that."""
+    from sfm_tpu_torch.config import SiftConfig
+    from sfm_tpu_torch.ops import compact, match, sample
+    from sfm_tpu_torch.sift import describe, frontend, orient
+    from sfm_tpu_torch.utils.precision import f32_precision
+
+    cfg = SiftConfig(**XLA_SIFT)
+    atlas, dets = frontend.detect_stage(torch.as_tensor(pair["img1"], device=dev), cfg)
+    x, y, s, v, sh = (torch.cat([getattr(d, f) for d in dets])
+                      for f in ("x", "y", "scale", "valid", "sharpness"))
+    o = frontend._sample_order(v, sh, cfg.sample_cap, [d.x.shape[0] for d in dets])
+    x, y, s, v = x[o], y[o], s[o], v[o]
+    count = v.sum().to(torch.int32)
+    hk = sample.orientation_histogram_sample(atlas, x, y, s, count)
+    hp = sample.orientation_histogram_sample_plain(atlas, x, y, s, count)
+    assert float((hk - hp).abs().max()) <= 1e-6 * float(hp.abs().max())
+    o1, o2, v2 = orient.orientations_from_histograms(hp, v)
+    valid2 = torch.cat([v, v2])
+    oc = compact.compaction_order(valid2)
+    args = [torch.cat([a, b])[oc] for a, b in ((x, x), (y, y), (s, s), (o1, o2))]
+    c2 = valid2.sum().to(torch.int32)
+    rk = sample.descriptor_sample(atlas, *args, c2)
+    rp = sample.descriptor_sample_plain(atlas, *args, c2)
+    assert float((rk - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
+    nk, np_ = describe.normalize_descriptors(rk), describe.normalize_descriptors(rp)
+    assert float((nk * np_).sum(1)[:int(c2)].min()) > 0.9999
+    s1 = frontend.extract_sift(torch.as_tensor(pair["img1"], device=dev), cfg)
+    s2 = frontend.extract_sift(torch.as_tensor(pair["img2"], device=dev), cfg)
+    a, b, vb = s1.descriptors, s2.descriptors, s2.keypoints.valid
+    bk, sk, ik = match.match_top2(a, b, vb, bf16=False)
+    with f32_precision():
+        bp, sp, ip = match.match_top2_plain(a, b, vb, bf16=False)
+    assert float((bk - bp).abs().max()) <= 1e-5
+    assert float((sk - sp).abs().max()) <= 1e-5
+    assert not bool(((ik != ip) & ((bp - sp) > 1e-5)).any())
+
+
+def test_match_use_pallas_false_launches_k6_f32(dev, monkeypatch):
+    """MatchConfig(use_pallas=False) with bf16=True: one K6 launch in its
+    f32 mode, the f32 top-2 exactly; dist_match on a one-rank mesh
+    too."""
+    from sfm_tpu_torch.config import MatchConfig
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.parallel import dist_match as dm, mesh as meshmod
+    from sfm_tpu_torch.sift import match
+
+    rng = np.random.default_rng(8)
+    d1, d2 = (torch.nn.functional.normalize(torch.as_tensor(
+        rng.normal(size=(n, 128)).astype(np.float32), device=dev), dim=1)
+        for n in (1500, 2048))
+    v2 = torch.as_tensor(rng.random(2048) > 0.1, device=dev)
+    modes = []
+    real = match.match_top2
+
+    def spy(*args, bf16):
+        modes.append(bf16)
+        return real(*args, bf16=bf16)
+
+    monkeypatch.setattr(match, "match_top2", spy)
+    monkeypatch.setattr(dm, "match_top2", spy)
+    cfg = MatchConfig(use_pallas=False, bf16=True)
+    _cuda.reset_launches()
+    m = match.match(d1, d2, None, v2, cfg)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["match_top2"] == 1 and modes == [False]
+    best, _, idx = real(d1, d2, v2, bf16=False)
+    assert torch.equal(m.index, idx.to(torch.int64)) and torch.equal(m.score, best)
+    with meshmod.make_mesh(1, device=dev) as mesh:
+        md = dm.dist_match(d1, d2, None, v2, cfg, mesh=mesh)
+    assert modes == [False, False]
+    assert torch.equal(md.index, m.index) and torch.equal(md.score, m.score)

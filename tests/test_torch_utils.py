@@ -1,7 +1,9 @@
-"""The port's ``utils/{metrics,checkpoint,debug}.py``: metrics against
-the JAX package's copy (float64 numpy on both sides: equal to 1e-12),
-map checkpoints across the two packages (the same arrays and dtypes
-both ways), and the debug dump on a small synthetic pair.
+"""The port's ``utils/{metrics,checkpoint,debug,timing}.py`` and
+``io/native.load_gray``: metrics against the JAX package's copy (float64
+numpy on both sides: equal to 1e-12), map checkpoints across the two
+packages (the same arrays and dtypes both ways), the debug dump on a
+small synthetic pair, one PNM through both packages' native decoders
+(equal), and ``measure_rtt`` on the CPU.
 
 The dump is not held against ``sfm_tpu.utils.debug``'s: the two
 packages' RANSAC draws differ.  It is held against the port's own
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from helpers import rot
+from sfm_tpu.io import native as jnative
 from sfm_tpu.models import incremental as jinc
 from sfm_tpu.utils import checkpoint as jckpt
 from sfm_tpu.utils import metrics as jmetrics
@@ -23,8 +26,9 @@ from sfm_tpu_torch import interop
 from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
 from sfm_tpu_torch.models import incremental as inc
 from sfm_tpu_torch.models import two_view
-from sfm_tpu_torch.utils import checkpoint, debug, metrics
-from synthetic_pair import synthetic_pair
+from sfm_tpu_torch.io import native
+from sfm_tpu_torch.utils import checkpoint, debug, metrics, timing
+from synthetic_pair import synthetic_pair, write_pgm
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -149,3 +153,20 @@ def test_print_dump_runs(small_dump):
     for k in ("num_matches =", "best_index =", "E_bank_head [4x3x3]:",
               "R_candidates [4x3x3]:", "points_head [5x3]:", "A0 [8x9]:"):
         assert k in text, k
+
+
+def test_native_load_gray_matches_jax(tmp_path):
+    img = (np.random.default_rng(5).random((37, 53)) * 255).astype(np.float32)
+    path = tmp_path / "a.pgm"
+    write_pgm(str(path), img)
+    out = native.load_gray(path)
+    assert out.dtype == np.float32 and out.shape == (37, 53)
+    np.testing.assert_array_equal(out, jnative.load_gray(path))
+    np.testing.assert_array_equal(out, np.round(img))
+    with pytest.raises(ValueError, match="PNM header"):
+        native.load_gray(tmp_path / "missing.pgm")
+
+
+def test_measure_rtt_is_a_positive_round_trip():
+    rtt = timing.measure_rtt(3, device="cpu")
+    assert 0.0 < rtt < 1e3
