@@ -127,8 +127,9 @@ Phases, each of which fails the run on any error:
    within 0.2 px); (d) the route's kernels against their plain versions
    at its shapes: K6 in its f32 mode at 5,120^2 and at the up-scale
    run's 23,552^2 (with the f32 ``torch.topk(a @ b.T, 2)`` as its
-   library call), K8 on each image's capped slots and K5 on the 2K
-   compacted slots; (e) ``svd3x3(method="analytic")`` against
+   library call, and as its bound the least time of an f32-accurate
+   product: three TF32 passes at 495 TFLOP/s), K8 on each image's
+   capped slots and K5 on the 2K compacted slots; (e) ``svd3x3(method="analytic")`` against
    ``"jacobi"`` on phase 4's 1,536-hypothesis 8-point bank and
    ``triangulate(solver="adj")`` against ``"jacobi"`` on its 2,560
    compacted correspondences, with ms and launches of each.  The route
@@ -295,7 +296,13 @@ RING_BAR = {"step_mean": 0.2, "step_std": 0.3, "total_deg": 2.0, "rms_px": 1.5}
 # memory rate and its operations over the peak rate for their type.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # float32 outside the tensor cores
+TF32_FLOPS = 495e12        # TF32 tensor cores, f32 accumulation
 BF16_FLOPS = 989e12        # bf16 tensor cores, f32 accumulation
+# An f32-accurate product: one exact f32 pass on the CUDA cores, or three
+# TF32 passes over an error-compensated split (x = hi + lo), whichever
+# the card does faster (the latter); the bound reads the work, not the
+# kernel.
+F32_ACCURATE_FLOPS = max(F32_FLOPS, TF32_FLOPS / 3)
 
 # Operations per live keypoint of the sampling kernels, counted from
 # the source (a transcendental, a compare or a floor counts as one): a
@@ -2404,13 +2411,15 @@ def hold_k6_f32(s1, s2, gates, where):
         lambda: match.match_top2_plain(a, b, va, bf16=False),
         f"{n1}x{n2}x128 f32, {int(s1.keypoints.valid.sum())} live rows",
         4 * 128 * (n1 + n2) + 4 * n2 + 12 * n1, 2.0 * n1 * n2 * 128,
-        lib_fn=lambda: torch.topk(a @ b.T, 2), plain_reps=5)
+        peak=F32_ACCURATE_FLOPS, lib_fn=lambda: torch.topk(a @ b.T, 2), plain_reps=5)
+    if rec["bound_by"] == "operations":
+        rec["bound_rate"] = "3 TF32 passes at 495 TFLOP/s"
     rec["index_differences"] = n_flip
     log(f"{where}: K6 f32 {n1} x {n2} x 128 vs plain: max |err| {e6:.3g} (1e-5), "
         f"{n_flip} index differences ({n_flip_clear} with a clear best, expected 0); "
         f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f}, plain "
         f"{rec['plain_ms']:.4f}, topk(a @ b.T) {rec['library_ms']:.4f}, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {rec.get('bound_rate', 'HBM')})")
     return rec
 
 
@@ -2725,7 +2734,7 @@ def main() -> int:
             line[-1]["gated"] = {p: {k: h["gated"][k] for k in gated_keys}
                                  for p, h in r["held_at"].items() if "gated" in h}
         # The XLA route's shapes (phase 12): K6's f32 mode, K8, K5.
-        xla = {p: {k: h[k] for k in gated_keys + ("library_ms",)}
+        xla = {p: {k: h[k] for k in gated_keys + ("library_ms", "bound_rate") if k in h}
                for p, h in r["held_at"].items() if p.startswith("xla")}
         if xla:
             line[-1]["f32" if r["name"] == "match_top2" else "xla_route"] = xla

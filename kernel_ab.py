@@ -5,14 +5,16 @@ or more checkouts of the repository, on one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 kernel_ab.py TREE [TREE ...]
+    python3 kernel_ab.py [--k6] TREE [TREE ...]
 
-Each TREE is the root of a checkout (``.`` for this one).  First every
+Each TREE is the root of a checkout (``.`` for this one); ``--k6`` times
+K6 alone (its rows below), for variants of the matcher.  First every
 distinct tree builds its kernels, all at once, one process each; then
 the trees run in the order given, each in a process of its own (the
 package has one name), so ``OLD NEW NEW OLD`` alternates them on the
 same card.  Per tree: the ``-Xptxas -v`` lines of its pyramid, K3, K4,
-K5, K6, K8 and K9 kernels (registers, shared memory, spills), the
+K5, K6, K8 and K9 kernels (registers, shared memory, spills) and the
+tensor-core instructions (HGMMA) of K6's kernels in their SASS, the
 sampling kernels' resident blocks per SM where the tree reports them,
 then CUDA-event milliseconds per call (mean of 20 after 3 warm-ups) and
 device milliseconds alone (the calls queued behind a spin kernel) of
@@ -27,7 +29,8 @@ device milliseconds alone (the calls queued behind a spin kernel) of
   the gated mode at ``lowest_scale=1.0``'s gates, with a digest of its
   maps;
 - K6 ``match_top2`` on seeded unit descriptors at 5,120^2 x 128 and
-  23,552^2 x 128 (bf16, all columns valid);
+  23,552^2 x 128 (all columns valid) in both modes, bf16 and f32, with
+  the f32 ``torch.topk(a @ b.T, 2)`` (TF32 off) beside them;
 - K4 and K9 on the capped sample slots of that image's ``detect_stage``
   and K5 on their duplicate subset, as ``chip_smoke.py`` builds them
   (the bench path's config on the 576 x 720 image: 2,560 slots; up_t2.0
@@ -64,8 +67,22 @@ for line in _cuda.library().build_log.splitlines():
     if "Compiling entry function" in line:
         keep = any(k in line for k in ("detect", "match", "fused", "descriptor",
                                        "orientation", "chain", "blur", "decim"))
-    if keep and ("entry" in line or "registers" in line or "spill" in line):
+    if (keep and ("entry" in line or "registers" in line or "spill" in line)
+            or "Performance Loss" in line):
         lines.append(line.strip())
+# SASS: tensor-core instructions (HGMMA) per matcher kernel
+import collections, subprocess
+tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+if os.path.exists(tool):
+    sass = subprocess.run([tool, "-sass", str(_cuda.library().path)], capture_output=True,
+                          text=True).stdout
+    fn, hgmma = None, collections.Counter()
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and "match" in (fn or ""):
+            hgmma[(fn, next(w for w in line.split() if w.startswith("HGMMA")))] += 1
+    lines += [f"SASS {f}: {n} x {op}" for (f, op), n in sorted(hgmma.items())]
 print(json.dumps(lines))
 '''
 
@@ -98,8 +115,9 @@ def digest(tensors):
                           ).hexdigest()[:16]
 
 
+K6_ONLY = sys.argv[2] == "1"
 multi = getattr(detect, "detect_maps_octaves", None)
-images = {"bench": torch.as_tensor(synthetic_pair(576, 720, seed=0)["img1"], device=dev),
+images = {} if K6_ONLY else {"bench": torch.as_tensor(synthetic_pair(576, 720, seed=0)["img1"], device=dev),
           "upscale": pyr.scale_up(torch.as_tensor(
               rotation_pair(960, 1280, seed=0)["img1"], device=dev))}
 for name, img in images.items():
@@ -127,13 +145,17 @@ for n in (5120, 23552):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     a, b = torch.as_tensor(d[:n], device=dev), torch.as_tensor(d[n:], device=dev)
     v = torch.ones(n, dtype=torch.bool, device=dev)
-    fn = lambda: match.match_top2(a, b, v)
-    out["ms"][f"K6 {n}^2 x 128"] = (cuda_ms(fn), device_ms(fn))
+    for mode in ("bf16", "f32"):
+        fn = lambda: match.match_top2(a, b, v, bf16=mode == "bf16")
+        key = f"K6 {mode} {n}^2 x 128"
+        out["ms"][key] = (cuda_ms(fn), device_ms(fn))
+        out["digest"][key] = digest(fn())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out["ms"][f"topk(a @ b.T, 2) f32 {n}^2 x 128"] = cuda_ms(lambda: torch.topk(a @ b.T, 2))
 
-for name, img, sc in (("bench", synthetic_pair(576, 720, seed=0)["img1"],
-                       timing.slice_config().sift),
-                      ("upscale", rotation_pair(960, 1280, seed=0)["img1"],
-                       timing.upscale_config())):
+for name, img, sc in () if K6_ONLY else (
+        ("bench", synthetic_pair(576, 720, seed=0)["img1"], timing.slice_config().sift),
+        ("upscale", rotation_pair(960, 1280, seed=0)["img1"], timing.upscale_config())):
     atlas, dets = frontend.detect_stage(torch.as_tensor(img, device=dev), sc)
     x, y, s, v, sharp = (torch.cat([getattr(d, f) for d in dets])
                          for f in ("x", "y", "scale", "valid", "sharpness"))
@@ -194,14 +216,15 @@ def build(trees) -> dict | None:
 
 
 def main() -> int:
-    trees = sys.argv[1:] or ["."]
+    k6_only = sys.argv[1:2] == ["--k6"]
+    trees = sys.argv[1 + k6_only:] or ["."]
     ptxas = build(trees)
     if ptxas is None:
         return 1
     results = []
     for i, tree in enumerate(trees):
         proc = subprocess.run([sys.executable, "-c", _CHILD,
-                               os.path.join(ROOT, "chip_smoke.py")],
+                               os.path.join(ROOT, "chip_smoke.py"), str(int(k6_only))],
                               cwd=os.path.abspath(tree),
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
@@ -216,7 +239,7 @@ def main() -> int:
         results.append(res)
     differ = sorted({k for r in results for k, v in r["digest"].items()
                      if results[0]["digest"].get(k) != v})
-    print(f"output digests (base chain, K3, K4, K5, K8, K9) equal across the trees: "
+    print(f"output digests (base chain, K3, K4, K5, K6, K8, K9) equal across the trees: "
           f"{not differ}{'; differing: ' + ', '.join(differ) if differ else ''}",
           flush=True)
     k9_k4 = all(v == r["digest"][k.replace("K9", "K4", 1)] for r in results

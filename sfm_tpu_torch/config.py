@@ -15,12 +15,14 @@ all four combinations of the two frontend knobs run:
 build_pyramid``, ``sift/detect.detect``), ``use_pallas=False``
 two-stage sampling (K8 histograms, the peaks, a second compaction,
 K5 for every slot), ``MatchConfig.use_pallas=False`` the f32 top-2
-(K6 with ``bf16=False``, whatever ``bf16`` says).  ``True`` is the
-fused route.  The knobs that only choose how the JAX package computes
-the same function on a TPU are accepted and ignored: ``pyramid_pallas``
-and ``blur_matmul`` (the base chain K1 + K2 computes the octave bases
-either way), ``dup_split`` (the duplicates always take their own K5
-launch), ``sample_block_k`` and ``topk_block`` (TPU tilings).
+(K6 with ``bf16=False``, whatever ``bf16`` says: f32-accurate products
+as three TF32 passes over an error-compensated split, within 1e-5 of
+exact f32).  ``True`` is the fused route.  The knobs that only choose
+how the JAX package computes the same function on a TPU are accepted
+and ignored: ``pyramid_pallas`` and ``blur_matmul`` (the base chain
+K1 + K2 computes the octave bases either way), ``dup_split`` (the
+duplicates always take their own K5 launch), ``sample_block_k`` and
+``topk_block`` (TPU tilings).
 ``detect_lean`` picks K3's mode, as in the JAX package.
 """
 
@@ -96,7 +98,9 @@ class MatchConfig:
     # False: the f32 top-2 (K6 with bf16=False, whatever ``bf16`` says);
     # None / True: K6 at ``bf16``.
     use_pallas: bool | None = None
-    bf16: bool = True            # bf16 products, f32 accumulation (K6)
+    # True: bf16 products, f32 accumulation (K6); False: f32-accurate
+    # products, three TF32 passes over x = hi + lo (~2^-21 per product).
+    bf16: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

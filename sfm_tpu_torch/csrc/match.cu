@@ -3,11 +3,11 @@
 // Replaces sfm_tpu/ops/pallas_match.py:247 match_top2_pallas.  See
 // sfm_tpu_torch/ops/match.py for the contract and the design note.
 //
-// What bounds it: N1 x N2 x 128 bf16 products (6.7 GFLOP at the bench's
+// What bounds it: N1 x N2 x 128 products (6.7 GFLOP at the bench's
 // 5,120^2, 142 GFLOP at the up-scale's 23,552^2) against a few MB of
 // operands, so the tensor cores' rate; and, because K = 128 is only 8
 // k-steps of 16 per output tile, the epilogue that folds every score
-// into a running (best, second, index) is as long as the products.
+// into a running (best, second, index) is as long as the bf16 products.
 //
 // bf16 (the default): tensor cores through wgmma.  A block of two
 // warpgroups keeps a 128 x 128 desc1 tile resident in shared memory
@@ -30,8 +30,12 @@
 // scratch, and merge_kernel folds the partials in range order with
 // merge()'s tie rule, so the lowest index wins ties across ranges too.
 //
-// f32 (bf16=False, off the main path): full-f32 FMAs on the CUDA cores
-// (never TF32), a 32-row tile in shared memory, the same column split.
+// f32 (bf16=False): f32-accurate products on the tensor cores as three
+// TF32 passes over an error-compensated split (x = hi + lo; see the f32
+// section), ~2^-21 relative per product, with the same epilogue and
+// merge; desc2 is split once into ready-made tiles that land by bulk
+// copy.  Three passes at 495 TFLOP/s beat one exact f32 pass on the
+// CUDA cores (67 TFLOP/s) 2.2x.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -121,11 +125,11 @@ __device__ __forceinline__ void load_rows(uint32_t base,
   }
 }
 
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo = kSBO) {
   // start address, leading (K) and stride (8-row) byte offsets, all in
   // 16-byte units; base offset 0, layout 0 (no swizzle).
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kLBO >> 4) << 16) |
-         ((uint64_t)(kSBO >> 4) << 32);
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void fence_acc(float (&d)[32]) {
@@ -253,105 +257,226 @@ match_tc_kernel(const __nv_bfloat16* __restrict__ d1,
   }
 }
 
-// ---- f32: CUDA-core FMAs -----------------------------------------------
-// Block: 256 threads as 16 x 16 (ty, tx); a 32-row tile of desc1 lives in
-// shared memory, the block's desc2 range streams through in 64-column
-// tiles of 32-dimension slices.  Thread (ty, tx) owns rows {2ty, 2ty+1}
-// and columns {tx + 16j}, j < 4, of each tile, so its columns arrive in
-// increasing order; the 16 per-thread partials of a row are merged in
-// shared memory at the end.
-constexpr int kFM = 32;
-constexpr int kFN = 64;
-constexpr int kFC = 32;
+// ---- f32: three-pass TF32 on the tensor cores --------------------------
+// Each operand splits as x = hi + lo: hi is x rounded to TF32 (10
+// mantissa bits, to nearest with ties away), lo = x - hi (exact in f32),
+// itself rounded to TF32.  A score is lo1.hi2 + hi1.lo2 + hi1.hi2, the
+// small terms first, summed in the f32 wgmma registers; the dropped
+// lo1.lo2 and lo's rounding leave ~2^-21 of each product.
+//
+// Every row tile streams all of its desc2 range, so desc2 is split once,
+// by split_tiles_kernel, into scratch laid out as the kernel's shared
+// memory wants it: per 64-column tile, hi and lo in the core-matrix
+// layout (8-row groups 4 KB apart) and the 64 column penalties, 65,792
+// contiguous bytes.  A tile then lands with one bulk copy (the TMA
+// engine; no thread computes an address), completing on an mbarrier:
+// 16-byte cp.async copies of the same bytes could not feed the tensor
+// cores.  A block of two warpgroups owns 128 desc1 rows (64 each), split
+// into registers as wgmma's A fragments (4 per k-step of 8: rows g and
+// g + 8 of the warp's 16, columns q and q + 4; 128 registers for K =
+// 128).  Per tile a warpgroup issues 48 m64n64k8 wgmmas (3 passes x 16
+// k-steps) and folds the 64 x 64 scores as the bf16 kernel does; then
+// the block synchronises and the freed stage is refilled 3 tiles ahead.
+constexpr int kXM = 128;                       // desc1 rows per block
+constexpr int kXN = 64;                        // desc2 columns per tile
+constexpr int kXStages = 3;
+constexpr int kXThreads = 256;                 // two warpgroups
+constexpr int kXHalfBytes = kXN * kD * 4;      // 32 KB: a tile's hi (or lo)
+constexpr int kXTileBytes = 2 * kXHalfBytes + kXN * 4;   // hi, lo, penalties
+constexpr int kXSmem = kXStages * kXTileBytes + kXStages * 8;   // + mbarriers
+constexpr uint32_t kXSBO = 32 * 128;           // 8-row groups of 512-byte rows
 
+// Round f32 bits to TF32: to nearest, ties away from zero, low 13 bits 0.
+__device__ __forceinline__ uint32_t tf32_round(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round(__float_as_uint(x));
+  lo = tf32_round(__float_as_uint(__fsub_rn(x, __uint_as_float(hi))));
+}
+
+// One thread per 16-byte chunk (column col, K chunk kc) of the padded
+// desc2: its hi and lo at their places in tile col / 64; the chunk-0
+// threads also write the column's penalty (-inf past n2).
 __global__ void __launch_bounds__(256)
-match_f32_kernel(const float* __restrict__ d1, const float* __restrict__ d2,
-                 const float* __restrict__ valid2, int n1, int n2,
-                 int cols_per_split, float* __restrict__ best_out,
-                 float* __restrict__ second_out, int* __restrict__ index_out) {
-  __shared__ float As[kFM][kD + 1];
-  __shared__ float Bs[kFN][kFC + 1];
-  __shared__ float pb[kFM][16];
-  __shared__ float ps[kFM][16];
-  __shared__ int pi[kFM][16];
+split_tiles_kernel(const float* __restrict__ d2, const float* __restrict__ valid2,
+                   int n2, int n_chunks, unsigned char* __restrict__ tiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_chunks) return;
+  const int r8 = i & 7, kc = (i >> 3) & 31, cg = i >> 8;   // cg: 8-column group
+  const int col = cg * 8 + r8;
+  float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (col < n2) x = reinterpret_cast<const float4*>(d2)[(size_t)col * 32 + kc];
+  uint4 h, l;
+  split_tf32(x.x, h.x, l.x);
+  split_tf32(x.y, h.y, l.y);
+  split_tf32(x.z, h.z, l.z);
+  split_tf32(x.w, h.w, l.w);
+  unsigned char* tile = tiles + (size_t)(col / kXN) * kXTileBytes;
+  const int off = ((col % kXN) >> 3) * kXSBO + kc * 128 + r8 * 16;
+  *reinterpret_cast<uint4*>(tile + off) = h;
+  *reinterpret_cast<uint4*>(tile + kXHalfBytes + off) = l;
+  if (kc == 0)
+    reinterpret_cast<float*>(tile + 2 * kXHalfBytes)[col % kXN] =
+        col < n2 ? (valid2[col] - 1.0f) * 1e3f : -__int_as_float(0x7f800000);
+}
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-  const int row0 = blockIdx.x * kFM;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+
+// D[64 x 64] (+)= A[64 x 8] B[64 x 8]^T in TF32; A from registers, B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_64x64x8(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__global__ void __launch_bounds__(kXThreads, 1)
+match_tf32x3_kernel(const float* __restrict__ d1, const unsigned char* __restrict__ tiles,
+                    int n1, int n2, int cols_per_split, float* __restrict__ best_out,
+                    float* __restrict__ second_out, int* __restrict__ index_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int q = lane & 3;
+  const int row0 = blockIdx.x * kXM;
   const int c_begin = blockIdx.y * cols_per_split;
   const int c_end = min(n2, c_begin + cols_per_split);
+  const int n_tiles = c_end > c_begin ? (c_end - c_begin + kXN - 1) / kXN : 0;
+  const uint32_t sB = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t bars = sB + kXStages * kXTileBytes;
 
-  for (int e = tid; e < kFM * kD; e += 256) {
-    const int r = e / kD, c = e % kD;
-    const int gr = row0 + r;
-    As[r][c] = gr < n1 ? d1[(size_t)gr * kD + c] : 0.0f;
+  // Tile t into stage t % 3 with one bulk copy; its mbarrier completes
+  // when all the bytes have landed.
+  auto load_tile = [&](int t) {
+    const int st = t % kXStages;
+    const uint32_t bar = bars + st * 8;
+    const unsigned char* src = tiles + (size_t)(c_begin / kXN + t) * kXTileBytes;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"((uint32_t)kXTileBytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(sB + st * kXTileBytes),
+        "l"(src), "r"((uint32_t)kXTileBytes), "r"(bar)
+        : "memory");
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < kXStages; ++st) mbar_init(bars + st * 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();   // the barriers exist before any thread waits on them
+  if (tid == 0)
+    for (int t = 0; t < kXStages && t < n_tiles; ++t) load_tile(t);
 
-  float b[2], s[2];
-  int bi[2];
+  // This thread's A fragments: rows g, g + 8 of its warp's 16, columns
+  // 8 ks + q and 8 ks + q + 4; rows past n1 are zero.
+  uint32_t ahi[kD / 8][4], alo[kD / 8][4];
+  {
+    const int r = row0 + wg * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    b[i] = kNeg;
-    s[i] = kNeg;
-    bi[i] = 0;
-  }
-
-  for (int col0 = c_begin; col0 < c_end; col0 += kFN) {
-    float acc[2][4];
+    for (int ks = 0; ks < kD / 8; ++ks)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int dc = 0; dc < kD; dc += kFC) {
-      __syncthreads();
-      for (int e = tid; e < kFN * kFC; e += 256) {
-        const int r = e / kFC, c = e % kFC;
-        const int gc = col0 + r;
-        Bs[r][c] = gc < c_end ? d2[(size_t)gc * kD + dc + c] : 0.0f;
+      for (int v = 0; v < 4; ++v) {
+        const int row = r + (v & 1) * 8;
+        const float x = row < n1 ? __ldg(d1 + (size_t)row * kD + ks * 8 + q + (v >> 1) * 4)
+                                 : 0.0f;
+        split_tf32(x, ahi[ks][v], alo[ks][v]);
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kFC; ++k) {
-        const float a0 = As[2 * ty][dc + k];
-        const float a1 = As[2 * ty + 1][dc + k];
+  }
+
+  float b0 = kNeg, s0 = kNeg, b1 = kNeg, s1 = kNeg;
+  int i0 = 0, i1 = 0;
+  float acc[32];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float bv = Bs[tx + 16 * j][k];
-          acc[0][j] = fmaf(a0, bv, acc[0][j]);
-          acc[1][j] = fmaf(a1, bv, acc[1][j]);
-        }
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kXStages;
+    mbar_wait(bars + st * 8, (t / kXStages) & 1);   // tile t has landed
+    const uint32_t hb = sB + st * kXTileBytes;
+    const uint32_t lb = hb + kXHalfBytes;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < kD / 8; ++ks)
+      wgmma_tf32_64x64x8(acc, alo[ks], smem_desc(hb + ks * 256, kXSBO), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < kD / 8; ++ks)
+      wgmma_tf32_64x64x8(acc, ahi[ks], smem_desc(lb + ks * 256, kXSBO), 1);
+#pragma unroll
+    for (int ks = 0; ks < kD / 8; ++ks)
+      wgmma_tf32_64x64x8(acc, ahi[ks], smem_desc(hb + ks * 256, kXSBO), 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    const float* pt = reinterpret_cast<const float*>(smem + st * kXTileBytes + 2 * kXHalfBytes);
+    const int col0 = c_begin + t * kXN;
+#pragma unroll
+    for (int j = 0; j < kXN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * q + e;
+        const float p = pt[c];
+        fold(b0, s0, i0, __fadd_rn(acc[4 * j + e], p), col0 + c);
+        fold(b1, s1, i1, __fadd_rn(acc[4 * j + 2 + e], p), col0 + c);
       }
     }
+    __syncthreads();   // every warpgroup is done with stage t % 3
+    if (tid == 0 && t + kXStages < n_tiles) load_tile(t + kXStages);
+  }
 
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col >= c_end) continue;
-      const float pen = (valid2[col] - 1.0f) * 1e3f;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) fold(b[i], s[i], bi[i], __fadd_rn(acc[i][j], pen), col);
+  merge_lanes(b0, s0, i0, 1);
+  merge_lanes(b1, s1, i1, 1);
+  merge_lanes(b0, s0, i0, 2);
+  merge_lanes(b1, s1, i1, 2);
+  if (q == 0) {
+    const int r = row0 + wg * 64 + warp * 16 + (lane >> 2);
+    const size_t o = (size_t)blockIdx.y * n1;
+    if (r < n1) {
+      best_out[o + r] = b0;
+      second_out[o + r] = s0;
+      index_out[o + r] = i0;
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    pb[2 * ty + i][tx] = b[i];
-    ps[2 * ty + i][tx] = s[i];
-    pi[2 * ty + i][tx] = bi[i];
-  }
-  __syncthreads();
-  if (tid < kFM) {
-    const int gr = row0 + tid;
-    float bb = pb[tid][0], ss = ps[tid][0];
-    int ii = pi[tid][0];
-    for (int t = 1; t < 16; ++t) merge(bb, ss, ii, pb[tid][t], ps[tid][t], pi[tid][t]);
-    if (gr < n1) {
-      const size_t o = (size_t)blockIdx.y * n1 + gr;
-      best_out[o] = bb;
-      second_out[o] = ss;
-      index_out[o] = ii;
+    if (r + 8 < n1) {
+      best_out[o + r + 8] = b1;
+      second_out[o + r + 8] = s1;
+      index_out[o + r + 8] = i1;
     }
   }
 }
@@ -378,17 +503,20 @@ merge_kernel(const float* __restrict__ pb, const float* __restrict__ ps,
 
 }  // namespace
 
-// bf16 != 0: the tensor-core kernel on bf16 descriptors, else the f32
-// kernel on f32 ones.  The grid is (row tiles, split); with split > 1 the
-// partials go to the scratch pb/ps/pi ([split, n1] each) and the merge
-// pass writes best/second/index; with split == 1 the kernel writes them.
+// bf16 != 0: the bf16 kernel on bf16 descriptors; else split_tiles_kernel
+// lays the f32 d2's hi, lo and penalties out in the scratch split2
+// (kXTileBytes per 64 columns, rounded up) and the three-pass TF32
+// kernel runs on them and the f32 d1.  The grid is (row tiles, split); with split > 1 the partials go
+// to the scratch pb/ps/pi ([split, n1] each) and the merge pass writes
+// best/second/index; with split == 1 the kernel writes them.
 extern "C" int sfm_match_top2(const void* d1, const void* d2, const void* valid2,
                               int n1, int n2, int bf16, int split,
-                              int cols_per_split, void* pb, void* ps, void* pi,
-                              void* best, void* second, void* index,
+                              int cols_per_split, void* split2, void* pb, void* ps,
+                              void* pi, void* best, void* second, void* index,
                               void* stream) {
   if (n1 < 1 || n2 < 0 || split < 1 || cols_per_split < 1 ||
-      (split > 1 && (!pb || !ps || !pi)))
+      (split > 1 && (!pb || !ps || !pi)) || (!bf16 && n2 > 0 && !split2) ||
+      (!bf16 && cols_per_split % kXN))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* ob = (float*)(split > 1 ? pb : best);
@@ -407,10 +535,21 @@ extern "C" int sfm_match_top2(const void* d1, const void* d2, const void* valid2
         (const __nv_bfloat16*)d1, (const __nv_bfloat16*)d2,
         (const float*)valid2, n1, n2, cols_per_split, ob, os, oi);
   } else {
-    dim3 grid((n1 + kFM - 1) / kFM, split);
-    match_f32_kernel<<<grid, dim3(16, 16), 0, st>>>(
-        (const float*)d1, (const float*)d2, (const float*)valid2, n1, n2,
-        cols_per_split, ob, os, oi);
+    static bool attr_x_set = false;
+    if (!attr_x_set) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          match_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
+      if (e != cudaSuccess) return (int)e;
+      attr_x_set = true;
+    }
+    const int n_chunks = (n2 + kXN - 1) / kXN * kXN * (kD / 4);
+    if (n_chunks > 0)
+      split_tiles_kernel<<<(n_chunks + 255) / 256, 256, 0, st>>>(
+          (const float*)d2, (const float*)valid2, n2, n_chunks, (unsigned char*)split2);
+    dim3 grid((n1 + kXM - 1) / kXM, split);
+    match_tf32x3_kernel<<<grid, kXThreads, kXSmem, st>>>(
+        (const float*)d1, (const unsigned char*)split2, n1, n2, cols_per_split, ob, os,
+        oi);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || split == 1) return (int)e;

@@ -78,10 +78,11 @@ _SIGNATURES = {
     # out, stream
     "sfm_descriptor_sample": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
                               _P, _P, _P, _P, _P),
-    # d1, d2, valid2, n1, n2, bf16, split, cols_per_split, partial best,
-    # second, index (scratch, split > 1), best, second, index, stream
+    # d1, d2, valid2, n1, n2, bf16, split, cols_per_split, d2's split
+    # tiles (scratch, bf16 == 0), partial best, second, index (scratch,
+    # split > 1), best, second, index, stream
     "sfm_match_top2": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P),
+                       _P, _P),
 }
 
 

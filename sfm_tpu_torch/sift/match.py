@@ -26,8 +26,10 @@ class Matches(NamedTuple):
 def match_descriptors_top2(desc1, desc2, valid2=None, *, chunk: int = 2048):
     """Running top-2 correlation of [N1, 128] against [N2, 128] in f32:
     (best, second, index int32), lowest index on ties, invalid columns
-    of ``valid2`` never chosen.  K6 with ``bf16=False`` (full-f32 FMAs,
-    never TF32) for CUDA tensors, its plain version for CPU tensors.
+    of ``valid2`` never chosen.  K6 with ``bf16=False`` for CUDA tensors
+    (three TF32 passes over an error-compensated split, x = hi + lo:
+    ~2^-21 of each product, within 1e-5 of exact f32), its plain version
+    (exact f32) for CPU tensors.
     ``chunk``, the JAX package's column block, does not change the
     result; the kernel and its plain version tile on their own."""
     del chunk

@@ -233,10 +233,12 @@ def test_detect_past_13_planes_equals_plain(dev, num_scales, lean):
     assert n_cand > 100
 
 
+@pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("n1", [1, 33, 300, 5121])
 @pytest.mark.parametrize("n2", [1, 700, 5121])
-def test_match_kernel_ragged_sizes(dev, n1, n2):
+def test_match_kernel_ragged_sizes(dev, n1, n2, bf16):
     from sfm_tpu_torch.ops.match import match_top2, match_top2_plain
+    from sfm_tpu_torch.utils.precision import f32_precision
 
     rng = np.random.default_rng(n1 * 7 + n2)
     d1 = np.abs(rng.normal(size=(n1, 128))).astype(np.float32)
@@ -246,21 +248,24 @@ def test_match_kernel_ragged_sizes(dev, n1, n2):
     v2 = rng.random(n2) > 0.1
     v2[0] = True
     args = [torch.as_tensor(a, device=dev) for a in (d1, d2, v2)]
-    bk, sk, ik = match_top2(*args)
-    bp, sp, ip = match_top2_plain(*args)
+    bk, sk, ik = match_top2(*args, bf16=bf16)
+    with f32_precision():
+        bp, sp, ip = match_top2_plain(*args, bf16=bf16)
     assert float((ik == ip).float().mean()) >= 0.999
     assert float((bk - bp).abs().max()) <= 1e-5
     assert float((sk - sp).abs().max()) <= 1e-5
 
 
-def test_match_ties_across_column_ranges(dev):
+@pytest.mark.parametrize("bf16", [True, False])
+def test_match_ties_across_column_ranges(dev, bf16):
     """Exact duplicate columns placed in different column ranges of the
-    split grid: the lower index wins and second equals best."""
+    split grid (the mode's own): the lower index wins and second equals
+    best."""
     from sfm_tpu_torch.ops import _cuda
-    from sfm_tpu_torch.ops.match import column_split, match_top2
+    from sfm_tpu_torch.ops.match import grid_split, match_top2
 
     n1, n2 = 256, 5121
-    split, cols = column_split(n1, n2, 128, _cuda.sm_count(dev))
+    split, cols = grid_split(n1, n2, bf16, _cuda.sm_count(dev))
     assert split >= 3
     rng = np.random.default_rng(3)
     d2 = np.abs(rng.normal(size=(n2, 128))).astype(np.float32)
@@ -273,15 +278,48 @@ def test_match_ties_across_column_ranges(dev):
     d1 = d2[src].copy()
     v2 = np.ones(n2, bool)
     best, second, idx = match_top2(*(torch.as_tensor(a, device=dev)
-                                     for a in (d1, d2, v2)))
+                                     for a in (d1, d2, v2)), bf16=bf16)
     np.testing.assert_array_equal(idx.cpu().numpy(), src)
     assert torch.equal(best, second)
     # With the first copy invalid, the next range's copy wins.
     v2[src] = False
     best, second, idx = match_top2(*(torch.as_tensor(a, device=dev)
-                                     for a in (d1, d2, v2)))
+                                     for a in (d1, d2, v2)), bf16=bf16)
     np.testing.assert_array_equal(idx.cpu().numpy(), src + cols)
     assert torch.equal(best, second)
+
+
+def test_match_f32_kernel_on_full_mantissas(dev):
+    """K6's f32 mode (three TF32 passes) on signed unit rows whose low 13
+    mantissa bits, the ones TF32 drops, are live, at ragged sizes: scores
+    within 2e-6 of a float64 top-2 and within 1e-5 of the plain f32
+    version; the float64 index on every row whose best leads by more
+    than 1e-5."""
+    from sfm_tpu_torch.ops.match import match_top2, match_top2_plain
+    from sfm_tpu_torch.utils.precision import f32_precision
+
+    rng = np.random.default_rng(13)
+    n1, n2 = 1000, 3000
+    d1, d2 = (rng.normal(size=(n, 128)) for n in (n1, n2))
+    d1, d2 = ((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+              for d in (d1, d2))
+    for d in (d1, d2):
+        assert (d.view(np.uint32) & np.uint32(0x1FFF)).astype(bool).mean() > 0.99
+    v2 = rng.random(n2) > 0.1
+    args = [torch.as_tensor(a, device=dev) for a in (d1, d2, v2)]
+    bk, sk, ik = (t.cpu().numpy() for t in match_top2(*args, bf16=False))
+    with f32_precision():
+        bp, sp, _ = (t.cpu().numpy() for t in match_top2_plain(*args, bf16=False))
+    s = d1.astype(np.float64) @ d2.astype(np.float64).T + (v2 - 1.0) * 1e3
+    i64 = s.argmax(1)
+    b64 = s[np.arange(n1), i64]
+    s[np.arange(n1), i64] = -np.inf
+    s64 = np.maximum(s.max(1), -2.0)
+    assert max(np.abs(bk - b64).max(), np.abs(sk - s64).max()) <= 2e-6
+    assert max(np.abs(bk - bp).max(), np.abs(sk - sp).max()) <= 1e-5
+    clear = (b64 - s64) > 1e-5
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(ik[clear], i64[clear])
 
 
 @pytest.mark.parametrize("bf16", [False, True])

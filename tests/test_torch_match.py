@@ -17,7 +17,7 @@ from sfm_tpu.config import MatchConfig
 from sfm_tpu.ops.pallas_match import match_top2_pallas
 from sfm_tpu.sift import match as jmatch
 from sfm_tpu_torch import interop
-from sfm_tpu_torch.ops.match import match_top2, match_top2_plain
+from sfm_tpu_torch.ops.match import grid_split, match_top2, match_top2_plain
 from sfm_tpu_torch.sift import match
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -78,3 +78,50 @@ def test_match_ratio_test_matches_jax(rng):
     mm = match.match(*map(T, (d1, d2, v1, v2)),
                      interop.config_to_torch(MatchConfig(mutual=True)))
     assert int(mm.valid.sum()) <= int(mt.valid.sum())
+
+
+def _tf32(x):
+    """x rounded to TF32 as K6's f32 mode rounds it (csrc/match.cu
+    tf32_round): to nearest with ties away from zero, 10 mantissa bits."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_tf32x3_split_keeps_f32_accuracy(rng, signed):
+    """The arithmetic of K6's f32 mode, emulated on the CPU: x = hi + lo
+    exactly; three TF32 passes (lo1.hi2 + hi1.lo2 + hi1.hi2, products
+    exact in f32, f32 sums) stay within 2e-6 of float64, while one pass
+    of hi alone misses 1e-5, so the kernel's 1e-5 bar would catch a
+    kernel that dropped the compensation."""
+    d1, d2 = (rng.normal(size=(n, 128)) for n in (256, 1024))
+    if not signed:
+        d1, d2 = np.abs(d1), np.abs(d2)
+    d1, d2 = ((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+              for d in (d1, d2))
+    hi1, hi2 = _tf32(d1), _tf32(d2)
+    lo1, lo2 = d1 - hi1, d2 - hi2
+    for x, hi, lo in ((d1, hi1, lo1), (d2, hi2, lo2)):
+        assert np.array_equal(hi + lo, x)
+        assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+        assert (np.abs(lo) <= np.abs(x) * 2.0 ** -11).all()
+    assert (d1.view(np.uint32) & np.uint32(0x1FFF)).astype(bool).mean() > 0.99
+    exact = d1.astype(np.float64) @ d2.astype(np.float64).T
+    three = T(_tf32(lo1)) @ T(hi2).T
+    three = three + T(hi1) @ T(_tf32(lo2)).T
+    three = three + T(hi1) @ T(hi2).T
+    assert np.abs(three.numpy() - exact).max() <= 2e-6
+    one = (T(hi1) @ T(hi2).T).numpy()
+    assert np.abs(one - exact).max() > 1e-5
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("n1, n2", [(1, 1), (256, 5121), (1500, 2048), (5120, 5120),
+                                    (23552, 23552)])
+def test_grid_split_covers_every_column_once(n1, n2, bf16):
+    """K6's grid in either mode: column ranges of whole 64-column tiles
+    that cover desc2, none empty (the f32 mode sizes them by waves of
+    one resident block per SM)."""
+    split, cols = grid_split(n1, n2, bf16, 132)
+    assert split >= 1 and cols % 64 == 0
+    assert (split - 1) * cols < n2 <= split * cols
