@@ -1,49 +1,59 @@
 #!/usr/bin/env python3
-"""Stage times and a device profile of the PyTorch + CUDA port's
-two-view main path, or of its multi-view path, on one card.
+"""Where the PyTorch + CUDA port's time goes on one card, by the
+program's own spans (``sfm_tpu_torch/utils/timing.py``).
 
 Run from the repository root on a machine with an NVIDIA card:
 
     python3 profile_port.py [--pairs 5] [--tvote-rounds N]
     python3 profile_port.py --sequence [--mesh 1]
     python3 profile_port.py --ring
+    python3 profile_port.py --cell <workload> --seed <n> [--seconds 51]
 
-Drives ``sfm_tpu_torch`` with ``chip_smoke.py``'s ``slice_config``
-(bench.py's own config; ``--tvote-rounds`` sets its translation re-vote
-rounds, 0 in the bench, 1 in the package default) on the 720 x 576
-synthetic pair
-(``tests/synthetic_pair.py``) and prints, per stage (per-image detect,
-which includes the K1/K2 base chain, and sample, match, geometry), the
-median host-clock milliseconds around synchronized calls; then
-profiles one pair with ``torch.profiler`` and prints the device busy
-share, the number of kernel launches per stage and the top operators
-by device time; a JSON summary goes to
+Every mode profiles one run with ``torch.profiler`` and gives each
+device operation and each idle gap to the innermost program span
+holding its start (``portbench/harness/program_spans.py``); it prints
+per span name the launches, device ms, host ms (inflated by the
+profiler), idle ms and host syncs, the longest idle gaps, and the
+device busy share (the union of the operations' intervals); ``by_stage``
+in its JSON summary is {span: [launches, device ms]}, "other" outside
+every span.
+
+The pair mode drives ``two_view_pipeline`` with ``chip_smoke.py``'s
+``slice_config`` (bench.py's own config; ``--tvote-rounds`` sets its
+translation re-vote rounds, 0 in the bench, 1 in the package default)
+on the 720 x 576 synthetic pair (``tests/synthetic_pair.py``): first
+the median host ms per pair of each span over ``--pairs`` pairs with
+tracing on, then the profile; into
 ``chiprun_out/profile_port_tvote<N>.json``.
 
-``--sequence`` drives ``run_incremental`` instead, on
-``chip_smoke.py``'s sequence phase (the 12-frame 576 x 720 arc,
+``--sequence`` drives ``run_incremental`` on ``chip_smoke.py``'s
+sequence phase (the 12-frame 576 x 720 arc,
 ``tests/synthetic_sequence.py``, the CLI's defaults, closure (0, 11)):
-per registered frame, the host-clock ms of each stage (extract, match,
-bootstrap, register = PnP registration, local_ba, closure, global_ba,
-each ending in a synchronize), then one profiled run's kernel launches
-and device ms per stage and per registered frame, and the same
-run's ms per frame with ``torch.use_deterministic_algorithms(True)``;
+per registered frame, the ms of each stage (extract, match, bootstrap,
+register = PnP registration, local_ba, closure, global_ba, each
+synchronized: ``timing.span(name, timer=...)``), then the profile, then
+the ms per frame with ``torch.use_deterministic_algorithms(True)``;
 a JSON summary goes to ``chiprun_out/profile_port_sequence.json``.
-With ``--mesh N`` it runs the same sequence without a mesh and on a
-mesh of N ranks (``sfm_tpu_torch.parallel``; one process holds one
-rank, so N is 1 unless launched by torchrun), in turns (without, with,
-with, without) after a warm-up of each, then profiles one run of each:
-the ms, kernel launches and device ms per registered frame of each
+With ``--mesh N`` it runs the sequence without a mesh and on a mesh of
+N ranks (``sfm_tpu_torch.parallel``; one process holds one rank, so N
+is 1 unless launched by torchrun), in turns (without, with, with,
+without) after a warm-up of each, then profiles one run of each by
 stage, into ``chiprun_out/profile_port_sequence_mesh.json``.
 
 ``--ring`` drives the turntable driver (``python -m
 sfm_tpu_torch.tools.reconstruct_dino --turntable``) on ``chip_smoke.py``'s
-ring phase (36 frames of ``tests/synthetic_ring.py``): the host-clock
-ms per frame of each stage (extract, the chain's stages, then tracks,
-pinned_lm, free_ba, snap), twice; then ``reconstruct_turntable`` alone,
-profiled on the captured chain and features: its kernel launches and
-device ms per stage; a JSON summary goes to
+ring phase (36 frames of ``tests/synthetic_ring.py``): the ms per frame
+of each stage (extract, the chain's stages, then tracks, pinned_lm,
+free_ba, snap), twice; then ``reconstruct_turntable`` alone, profiled
+on the captured chain and features; into
 ``chiprun_out/profile_port_ring.json``.
+
+``--cell`` runs one traced run of a benchmark cell in this process
+(``portbench/run.py --workload <cell> --seed <n> --trace 1``, its
+result line on standard output) and profiles its slice by program span
+as above, per request, with the share of the device operations in each
+of the benchmark's own spans that fall inside a program span's child;
+into ``profile_port_<cell>_<seed>.json`` beside the others.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import argparse
 import dataclasses
 import json
 import os
+import pathlib
 import statistics
 import sys
 import time
@@ -59,33 +70,54 @@ import time
 from chip_smoke import ROOT, card_line, slice_config
 
 
-def kernels_by_stage(prof, stages):
-    """(device kernel events, {stage: [launches, device ms]}) of a
-    profile whose stages are CPU-side ranges that end in a synchronize,
-    so each stage's kernels run inside its range; kernels outside every
-    range go to "other"."""
+def profiled(fn):
+    """``fn()`` under ``torch.profiler`` inside the benchmark's slice
+    range: (its result, wall ms, the slice's profile, its attribution to
+    the program's spans)."""
     import torch
 
-    events = prof.events()
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
-             if e.name in stages
-             and e.device_type == torch.autograd.DeviceType.CPU]
-    # Device kernels: CUDA-side events other than the stage annotations
-    # mirrored onto the device timeline and the profiler's own buffers.
-    kern = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in stages and "Buffer" not in e.name]
-    by_stage = {name: [0, 0.0] for name in (*stages, "other")}
-    for e in kern:
-        name = next((n for n, a, b in spans
-                     if a <= e.time_range.start <= b), "other")
-        by_stage[name][0] += 1
-        by_stage[name][1] += e.time_range.elapsed_us() / 1e3
-    return kern, by_stage
+    from portbench.harness import program_spans, trace
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(trace.SLICE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    p = trace.read_profile(prof, (), 1)
+    return out, wall, p, program_spans.attribute(p)
 
 
-SEQ_STAGES = ("extract", "match", "bootstrap", "register", "local_ba", "closure",
-              "global_ba")
+def report(label, wall, p, a, per=1, unit="") -> dict:
+    """Print the profile by program span (``per`` runs) and return its
+    summary."""
+    from portbench.harness import program_spans
+
+    rows = program_spans.table(a)
+    busy = p.busy_s() * 1e3
+    print(f"{label}: wall {wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%), {len(p.ops)} device operations")
+    for k, v in sorted(rows.items(), key=lambda kv: -kv[1]["launches"]):
+        print(f"  {k or 'other':22s} {v['launches'] / per:9.1f} launches "
+              f"{v['device_ms'] / per:8.3f} ms device {v['host_ms'] / per:9.2f} ms host "
+              f"{v['idle_ms'] / per:8.2f} ms idle {v['host_syncs'] / per:6.1f} syncs{unit}")
+    gaps = program_spans.longest_gaps(a)
+    print("  longest idle gaps (ms): " + ", ".join(f"{n or 'other'} {ms:.3f}" for n, ms in gaps))
+    tops = program_spans.top_ops(a)
+    for k, ops in tops.items():
+        print(f"  top in {k or 'other'}: " + "; ".join(f"{n[:70]} {ms / per:.3f}" for n, ms in ops))
+    return {"profiled_wall_ms": wall, "device_busy_ms": busy, "kernel_launches": len(p.ops),
+            "by_stage": {k or "other": [v["launches"], v["device_ms"]] for k, v in rows.items()},
+            "spans": rows, "idle_gaps": gaps, "top_ops": tops}
+
+
+def _dump(name, summary):
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, name), "w") as fh:
+        json.dump(summary, fh, indent=1, default=float)
 
 
 def sequence_runner():
@@ -119,8 +151,7 @@ def sequence_runner():
 
 
 def sequence(card) -> int:
-    """The multi-view path's stage times and device profile (module
-    docstring)."""
+    """The multi-view path's stage times and profile (module docstring)."""
     import torch
 
     from chip_smoke import SEQ_CLOSURES, SEQ_FRAMES
@@ -136,18 +167,8 @@ def sequence(card) -> int:
     print(f"run wall (ms, stages synchronized): {wall:.1f} = {wall / n:.2f} per frame")
     for k, v in per_frame.items():
         print(f"  {k:10s} {v:9.2f} ms per registered frame")
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        _, prof_wall = run(StageTimer())
-    kern, by_stage = kernels_by_stage(prof, SEQ_STAGES)
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    print(f"profiled run: wall {prof_wall:.1f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / prof_wall:.1f}%), {len(kern)} kernels")
-    for k, (cnt, ms) in by_stage.items():
-        print(f"  {k:10s} {cnt:7d} kernels ({cnt / n:8.1f} per frame)  {ms:9.3f} ms "
-              f"device ({ms / n:7.3f} per frame)")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
+    _, prof_wall, p, a = profiled(lambda: run(StageTimer()))
+    prof = report("profiled run", prof_wall, p, a, n, " per frame")
 
     # The same run with deterministic algorithms (index_add_ without float
     # atomics): ms per frame, and whether the result changes.
@@ -163,25 +184,17 @@ def sequence(card) -> int:
           f"(default {int(res.state.X_valid.sum())})")
     for k, v in det_per_frame.items():
         print(f"  {k:10s} {v:9.2f} ms per registered frame (default {per_frame[k]:.2f})")
-    out = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_port_sequence.json"), "w") as fh:
-        json.dump({"card": card, "frames": SEQ_FRAMES, "registered": n,
-                   "wall_ms": wall, "stage_ms_per_frame": per_frame,
-                   "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
-                   "kernel_launches": len(kern), "by_stage": by_stage,
-                   "deterministic": {"wall_ms": det_wall,
-                                     "stage_ms_per_frame": det_per_frame,
-                                     "points": int(det_res.state.X_valid.sum())}},
-                  fh, indent=1)
+    _dump("profile_port_sequence.json", {
+        "card": card, "frames": SEQ_FRAMES, "registered": n, "wall_ms": wall,
+        "stage_ms_per_frame": per_frame, **prof,
+        "deterministic": {"wall_ms": det_wall, "stage_ms_per_frame": det_per_frame,
+                          "points": int(det_res.state.X_valid.sum())}})
     return 0
 
 
 def sequence_mesh(card, n) -> int:
     """The sequence's stages without a mesh and on a mesh of ``n``
     ranks, in one process (module docstring)."""
-    import torch
-
     from chip_smoke import SEQ_CLOSURES, SEQ_FRAMES
     from sfm_tpu_torch.parallel import mesh as meshmod
     from sfm_tpu_torch.utils.timing import StageTimer
@@ -190,16 +203,12 @@ def sequence_mesh(card, n) -> int:
     out = {"card": card, "frames": SEQ_FRAMES, "closure": SEQ_CLOSURES}
     with meshmod.make_mesh(n) as mesh:
         meshes = {"without": None, f"mesh_{mesh.size}": mesh}
-
-        def run(name, timer):
-            return run_seq(timer, meshes[name])
-
         names = list(meshes)
         for name in names:
-            run(name, None)                          # warm-up
+            run_seq(None, meshes[name])              # warm-up
         for name in (names[0], names[1], names[1], names[0]):
             timer = StageTimer()
-            res, wall = run(name, timer)
+            res, wall = run_seq(timer, meshes[name])
             k = int(res.state.pose_valid.sum())
             per_frame = {s: v["total_ms"] / k for s, v in timer.summary().items()}
             out.setdefault(name, {"runs": []})["runs"].append(
@@ -208,34 +217,23 @@ def sequence_mesh(card, n) -> int:
             print(f"card: {card}; {name}: wall {wall:.1f} ms = {wall / k:.2f} per frame, "
                   f"{k} registered, {int(res.state.X_valid.sum())} points; per frame: "
                   + ", ".join(f"{s} {v:.2f}" for s, v in per_frame.items()))
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         for name in names:
-            with torch.profiler.profile(activities=acts) as prof:
-                res, prof_wall = run(name, StageTimer())
-            kern, by_stage = kernels_by_stage(prof, SEQ_STAGES)
+            (res, _), prof_wall, p, a = profiled(
+                lambda: run_seq(StageTimer(), meshes[name]))
             k = int(res.state.pose_valid.sum())
-            busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-            out[name]["profiled"] = {"wall_ms": prof_wall, "device_busy_ms": busy,
-                                     "kernel_launches": len(kern), "by_stage": by_stage}
-            print(f"{name} profiled: wall {prof_wall:.1f} ms, device busy {busy:.2f} ms, "
-                  f"{len(kern)} kernels")
-            for s, (cnt, ms) in by_stage.items():
-                print(f"  {s:10s} {cnt / k:8.1f} kernels and {ms / k:7.3f} ms device "
-                      f"per frame")
-    path = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "profile_port_sequence_mesh.json"), "w") as fh:
-        json.dump(out, fh, indent=1, default=float)
+            prof = report(f"{name} profiled", prof_wall, p, a, k, " per frame")
+            prof["wall_ms"] = prof.pop("profiled_wall_ms")
+            out[name]["profiled"] = prof
+    _dump("profile_port_sequence_mesh.json", out)
     return 0
 
 
 def ring(card) -> int:
-    """The turntable path's stage times and the turntable stages' device
+    """The turntable path's stage times and the turntable stages'
     profile (module docstring)."""
     import tempfile
 
     import numpy as np
-    import torch
 
     from chip_smoke import RING_FRAMES, run_turntable_driver, spy
     from sfm_tpu_torch.models import turntable
@@ -262,30 +260,102 @@ def ring(card) -> int:
             for k, v in per_frame.items():
                 print(f"  {k:10s} {v:9.2f} ms per frame")
     args, kwargs = calls[0][0], calls[0][1]
-    stages = ("tracks", "pinned_lm", "free_ba", "snap")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    _, prof_wall, p, a = profiled(lambda: turntable.reconstruct_turntable(
+        *args, **{**kwargs, "timer": StageTimer()}))
+    prof = report("profiled reconstruct_turntable", prof_wall, p, a, RING_FRAMES,
+                  " per frame")
+    prof["turntable_profiled_wall_ms"] = prof.pop("profiled_wall_ms")
+    _dump("profile_port_ring.json", {"card": card, "frames": RING_FRAMES, "runs": runs,
+                                     **prof})
+    return 0 if all(r["rc"] == 0 for r in runs) and np.isfinite(prof["device_busy_ms"]) else 1
+
+
+def pair(card, n_pairs, tvote_rounds) -> int:
+    """The two-view main path by program span (module docstring)."""
+    import torch
+
+    from sfm_tpu_torch.models import two_view
+    from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.utils import timing
+    from synthetic_pair import synthetic_pair
+
+    cfg = dataclasses.replace(slice_config(), tvote_rounds=tvote_rounds)
+    dev = torch.device("cuda", 0)
+    p = synthetic_pair(576, 720, seed=0)
+    img1, img2, K = (torch.as_tensor(p[k], device=dev) for k in ("img1", "img2", "K"))
+    _cuda.library()
+
+    def one_pair(seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return two_view.two_view_pipeline(img1, img2, K, gen, cfg)
+
+    one_pair(0)
+    timing.reset()
+    timing.enable()
+    walls = []
+    for s in range(n_pairs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        turntable.reconstruct_turntable(*args, **{**kwargs, "timer": StageTimer()})
+        with timing.request(s):
+            one_pair(s)
         torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    kern, by_stage = kernels_by_stage(prof, stages)
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    print(f"profiled reconstruct_turntable: wall {prof_wall:.1f} ms, device busy "
-          f"{busy:.2f} ms ({100 * busy / prof_wall:.1f}%), {len(kern)} kernels")
-    for k, (cnt, ms) in by_stage.items():
-        print(f"  {k:10s} {cnt:7d} kernels ({cnt / RING_FRAMES:8.1f} per frame)  "
-              f"{ms:9.3f} ms device ({ms / RING_FRAMES:7.3f} per frame)")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
-    out = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_port_ring.json"), "w") as fh:
-        json.dump({"card": card, "frames": RING_FRAMES, "runs": runs,
-                   "turntable_profiled_wall_ms": prof_wall, "device_busy_ms": busy,
-                   "kernel_launches": len(kern), "by_stage": by_stage},
-                  fh, indent=1, default=float)
-    return 0 if all(r["rc"] == 0 for r in runs) and np.isfinite(busy) else 1
+        walls.append((time.perf_counter() - t0) * 1e3)
+    timing.disable()
+    per_pair: dict = {}
+    for r in timing.records():
+        ms = per_pair.setdefault(r.name, [0.0] * n_pairs)
+        ms[r.request] += (r.t1_ns - r.t0_ns) * 1e-6
+    med = {k: statistics.median(v) for k, v in per_pair.items()}
+    print(f"card: {card}; tvote_rounds={cfg.tvote_rounds}")
+    print(f"pair wall (ms, median of {n_pairs}): {statistics.median(walls):.2f}; host ms "
+          "per pair in each span (not synchronized):")
+    for k, v in med.items():
+        print(f"  {k:22s} {v:9.2f}")
+    timing.reset()
+    _, wall, prof, a = profiled(lambda: one_pair(1))
+    _dump(f"profile_port_tvote{cfg.tvote_rounds}.json", {
+        "card": card, "tvote_rounds": cfg.tvote_rounds, "stage_ms": med,
+        "pair_wall_ms": statistics.median(walls), **report("profiled pair", wall, prof, a)})
+    return 0
+
+
+def cell(card, workload, seed, seconds) -> int:
+    """One traced run of a benchmark cell by program span (module
+    docstring)."""
+    from portbench.harness import bench, program_spans, trace
+
+    slices, read = [], trace.read_profile
+    trace.read_profile = lambda *a: slices.append(read(*a)) or slices[-1]
+    rc = bench.main(["--workload", workload, "--seed", str(seed), "--seconds",
+                     str(seconds), "--trace", "1"], pathlib.Path(ROOT), time.time())
+    trace.read_profile = read
+    if rc or not slices:
+        return rc or 1
+    p = slices[0]
+    a = program_spans.attribute(p)
+    print(f"card: {card}; {workload} seed {seed}: {p.requests} profiled requests",
+          file=sys.stderr)
+    sys.stdout, stdout = sys.stderr, sys.stdout      # the result line stays last
+    try:
+        out = report("profiled slice, per request", p.wall_s * 1e3, p, a, p.requests)
+        indices = {r.index for r, _, _ in a.records}
+        held = [k >= 0 and a.records[k][0].parent in indices for k in a.op_span]
+        cover = {}
+        for name in sorted({o[3] for o in p.ops if o[3]}):
+            mine = [h for o, h in zip(p.ops, held) if o[3] == name]
+            cover[name] = sum(mine) / len(mine)
+            print(f"  benchmark span {name}: {len(mine) / p.requests:.1f} device operations "
+                  f"a request, {100 * cover[name]:.2f}% inside a program span's child")
+        first = program_spans.first_calls()
+        print("  first calls (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(first.items(), key=lambda kv: -kv[1])))
+    finally:
+        sys.stdout = stdout
+    _dump(f"profile_port_{workload}_{seed}.json", {
+        "card": card, "workload": workload, "seed": seed, "requests": p.requests,
+        "child_coverage": cover, "first_calls": first, **out})
+    return 0
 
 
 def main() -> int:
@@ -303,94 +373,21 @@ def main() -> int:
                     help="profile the turntable driver on the 36-frame ring")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="with --sequence: also on a mesh of N ranks, in turns")
+    ap.add_argument("--cell", metavar="WORKLOAD",
+                    help="one traced run of a benchmark cell, by program span")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--seconds", type=float, default=51)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "tests"))
+    if args.cell:
+        return cell(card_line(), args.cell, args.seed, args.seconds)
     if args.sequence and args.mesh:
         return sequence_mesh(card_line(), args.mesh)
     if args.sequence:
         return sequence(card_line())
     if args.ring:
         return ring(card_line())
-    from sfm_tpu_torch.models import two_view
-    from sfm_tpu_torch.ops import _cuda
-    from sfm_tpu_torch.sift import frontend
-    from synthetic_pair import synthetic_pair
-
-    card = card_line()
-    cfg = dataclasses.replace(slice_config(), tvote_rounds=args.tvote_rounds)
-    dev = torch.device("cuda", 0)
-    pair = synthetic_pair(576, 720, seed=0)
-    img1, img2, K = (torch.as_tensor(pair[k], device=dev)
-                     for k in ("img1", "img2", "K"))
-    _cuda.library()
-    sc = cfg.sift
-    offsets, subs = frontend.atlas_layout(tuple(img1.shape), sc)
-
-    def one_pair(seed, times=None):
-        def stage(name, fn):
-            with torch.profiler.record_function(name):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn()
-                torch.cuda.synchronize()
-            if times is not None:
-                times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        sifts = []
-        for img in (img1, img2):
-            atlas, dets = stage("detect", lambda: frontend.detect_stage(img, sc))
-            sifts.append(stage("sample", lambda: frontend.sample_stage(
-                atlas, offsets, subs, dets, sc)))
-        uv1, uv2, mask = stage("match", lambda: two_view.match_stage(*sifts, cfg))
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        return stage("geometry", lambda: two_view.two_view_geometry(
-            uv1, uv2, mask, K, cfg, generator=gen))
-
-    one_pair(0)
-    times = {}
-    walls = []
-    for s in range(args.pairs):
-        t0 = time.perf_counter()
-        one_pair(s, times)
-        walls.append((time.perf_counter() - t0) * 1e3)
-    med = {k: statistics.median(v) for k, v in times.items()}
-    med["detect"] *= 2   # two images per pair
-    med["sample"] *= 2
-    print(f"card: {card}; tvote_rounds={cfg.tvote_rounds}")
-    print(f"pair wall (ms, median of {args.pairs}, stages synchronized): "
-          f"{statistics.median(walls):.2f}")
-    for k, v in med.items():
-        print(f"  {k:9s} {v:9.2f} ms/pair")
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one_pair(1)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern, by_stage = kernels_by_stage(prof, ("detect", "sample", "match", "geometry"))
-    busy_us = sum(e.time_range.elapsed_us() for e in kern)
-    print(f"profiled pair: wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
-          f"{len(kern)} kernels")
-    for k, (n, ms) in by_stage.items():
-        print(f"  {k:9s} {n:6d} kernels  {ms:8.3f} ms device")
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
-    print(table)
-    out = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    name = f"profile_port_tvote{cfg.tvote_rounds}.json"
-    with open(os.path.join(out, name), "w") as fh:
-        json.dump({"card": card, "tvote_rounds": cfg.tvote_rounds, "stage_ms": med,
-                   "pair_wall_ms": statistics.median(walls),
-                   "profiled_wall_ms": wall_us / 1e3,
-                   "device_busy_ms": busy_us / 1e3,
-                   "kernel_launches": len(kern),
-                   "by_stage": by_stage}, fh, indent=1)
-    return 0
+    return pair(card_line(), args.pairs, args.tvote_rounds)
 
 
 if __name__ == "__main__":

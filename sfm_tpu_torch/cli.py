@@ -30,7 +30,6 @@ import argparse
 import json
 import math
 import sys
-import time
 
 
 def _device(name):
@@ -109,29 +108,26 @@ def _reconstruct(args, dev, mesh):
     import torch
 
     from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
-    from sfm_tpu_torch.utils.timing import StageTimer, sync
+    from sfm_tpu_torch.utils.timing import StageTimer, span
 
     timer = StageTimer()
-    t0 = time.perf_counter()
-    imgs = _load_images(args.images)
-    h, w = imgs[0].shape
-    K = _build_K(args, w, h)
-    cfg = PipelineConfig(
-        sift=SiftConfig(max_pts_per_octave=args.max_pts, thresh=args.thresh,
-                        num_octaves=args.octaves),
-        ransac=RansacConfig(n_hyps=args.ransac_hyps, threshold=args.ransac_thresh),
-    )
-    timer.record("load_images", time.perf_counter() - t0)
+    with span("load_images", timer=timer):
+        imgs = _load_images(args.images)
+        h, w = imgs[0].shape
+        K = _build_K(args, w, h)
+        cfg = PipelineConfig(
+            sift=SiftConfig(max_pts_per_octave=args.max_pts, thresh=args.thresh,
+                            num_octaves=args.octaves),
+            ransac=RansacConfig(n_hyps=args.ransac_hyps, threshold=args.ransac_thresh),
+        )
 
     if len(imgs) == 2:
         from sfm_tpu_torch.models import two_view
 
-        t0 = time.perf_counter()
-        res = two_view.run_two_view(*(torch.as_tensor(a, device=dev)
-                                      for a in (imgs[0], imgs[1], K)),
-                                    cfg, seed=args.seed)
-        sync(res)
-        timer.record("pipeline", time.perf_counter() - t0)
+        with span("pipeline", timer=timer):
+            res = two_view.run_two_view(*(torch.as_tensor(a, device=dev)
+                                          for a in (imgs[0], imgs[1], K)),
+                                        cfg, seed=args.seed)
         points = res.points.cpu().numpy()
         valid = res.point_valid.cpu().numpy()
         err_px = math.sqrt(max(float(res.reproj_err), 0.0) / 2) * float(args.focal)
@@ -149,13 +145,11 @@ def _reconstruct(args, dev, mesh):
     else:
         from sfm_tpu_torch.models import incremental
 
-        t0 = time.perf_counter()
-        res = incremental.run_incremental(
-            [torch.as_tensor(im, device=dev) for im in imgs], K, cfg,
-            seed=args.seed, ba_iters=args.ba_iters, closure_pairs=args.closure,
-            mesh=mesh)
-        sync(res)
-        timer.record("pipeline", time.perf_counter() - t0)
+        with span("pipeline", timer=timer):
+            res = incremental.run_incremental(
+                [torch.as_tensor(im, device=dev) for im in imgs], K, cfg,
+                seed=args.seed, ba_iters=args.ba_iters, closure_pairs=args.closure,
+                mesh=mesh)
         state = res.state
         points = state.X.cpu().numpy()
         valid = state.X_valid.cpu().numpy()
@@ -178,9 +172,8 @@ def _reconstruct(args, dev, mesh):
     if args.out:
         from sfm_tpu_torch.io import image_io
 
-        t0 = time.perf_counter()
-        image_io.save_ply(args.out, points, valid=valid.astype(np.uint8))
-        timer.record("export", time.perf_counter() - t0)
+        with span("export", timer=timer):
+            image_io.save_ply(args.out, points, valid=valid.astype(np.uint8))
         metrics["ply"] = args.out
     if args.checkpoint and state is not None:
         from sfm_tpu_torch.utils.checkpoint import save_map
@@ -199,64 +192,59 @@ def cmd_sift(args):
 
     from sfm_tpu_torch.config import MatchConfig, SiftConfig
     from sfm_tpu_torch.sift import frontend, match as match_mod
-    from sfm_tpu_torch.utils.timing import StageTimer
+    from sfm_tpu_torch.utils.timing import StageTimer, span
 
     timer = StageTimer()
-    t0 = time.perf_counter()
-    imgs = _load_images(args.images)
-    timer.record("load_images", time.perf_counter() - t0)
+    with span("load_images", timer=timer):
+        imgs = _load_images(args.images)
     cfg = SiftConfig(num_octaves=args.octaves, thresh=args.thresh,
                      max_pts_per_octave=args.max_pts, up_scale=args.up_scale)
 
-    t0 = time.perf_counter()
-    results = [frontend.extract_sift(torch.as_tensor(im, device=dev), cfg)
-               for im in imgs]
-    counts = [int(r.keypoints.valid.sum()) for r in results]
-    timer.record("extract", time.perf_counter() - t0)
+    with span("extract", timer=timer):
+        results = [frontend.extract_sift(torch.as_tensor(im, device=dev), cfg)
+                   for im in imgs]
+        counts = [int(r.keypoints.valid.sum()) for r in results]
     metrics = {"mode": "sift", "device": _device_name(dev),
                "num_images": len(imgs), "features": counts}
 
     if len(imgs) == 2:
-        t0 = time.perf_counter()
         f1, f2 = results
-        m = match_mod.match(f1.descriptors, f2.descriptors, f1.keypoints.valid,
-                            f2.keypoints.valid, MatchConfig())
-        n_match = int(m.valid.sum())
-        timer.record("match", time.perf_counter() - t0)
+        with span("match", timer=timer):
+            m = match_mod.match(f1.descriptors, f2.descriptors, f1.keypoints.valid,
+                                f2.keypoints.valid, MatchConfig())
+            n_match = int(m.valid.sum())
         metrics["num_matches"] = n_match
         metrics["match_pct"] = round(100.0 * n_match / max(counts[0], 1), 1)
 
         if args.homography:
             from sfm_tpu_torch.geometry import homography
 
-            t0 = time.perf_counter()
-            uv1 = torch.stack([f1.keypoints.x, f1.keypoints.y], dim=-1)
-            uv2 = torch.stack([f2.keypoints.x, f2.keypoints.y], dim=-1)[m.index]
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(args.seed)
-            res = homography.ransac_homography(
-                uv1, uv2, m.valid, generator=gen, n_hyps=1024,
-                threshold=float(args.homography_thresh) ** 2)
-            n_inl = int(res.num_inliers)
-            timer.record("homography", time.perf_counter() - t0)
+            with span("homography", timer=timer):
+                uv1 = torch.stack([f1.keypoints.x, f1.keypoints.y], dim=-1)
+                uv2 = torch.stack([f2.keypoints.x, f2.keypoints.y], dim=-1)[m.index]
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(args.seed)
+                res = homography.ransac_homography(
+                    uv1, uv2, m.valid, generator=gen, n_hyps=1024,
+                    threshold=float(args.homography_thresh) ** 2)
+                n_inl = int(res.num_inliers)
             metrics["homography_inliers"] = n_inl
             metrics["H"] = np.round(res.H.cpu().numpy(), 6).tolist()
 
     if args.out:
-        t0 = time.perf_counter()
-        arrays = {}
-        for i, r in enumerate(results):
-            kp = r.keypoints
-            v = kp.valid.cpu().numpy()
-            arrays.update({
-                f"x{i}": kp.x.cpu().numpy()[v],
-                f"y{i}": kp.y.cpu().numpy()[v],
-                f"scale{i}": kp.scale.cpu().numpy()[v],
-                f"orientation{i}": kp.orientation.cpu().numpy()[v],
-                f"descriptors{i}": r.descriptors.cpu().numpy()[v],
-            })
-        np.savez_compressed(args.out, **arrays)
-        timer.record("export", time.perf_counter() - t0)
+        with span("export", timer=timer):
+            arrays = {}
+            for i, r in enumerate(results):
+                kp = r.keypoints
+                v = kp.valid.cpu().numpy()
+                arrays.update({
+                    f"x{i}": kp.x.cpu().numpy()[v],
+                    f"y{i}": kp.y.cpu().numpy()[v],
+                    f"scale{i}": kp.scale.cpu().numpy()[v],
+                    f"orientation{i}": kp.orientation.cpu().numpy()[v],
+                    f"descriptors{i}": r.descriptors.cpu().numpy()[v],
+                })
+            np.savez_compressed(args.out, **arrays)
         metrics["out"] = args.out
     _emit(metrics, timer, args.metrics)
     return 0

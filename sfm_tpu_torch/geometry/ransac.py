@@ -16,6 +16,7 @@ import torch
 from sfm_tpu_torch.ops import linalg
 from sfm_tpu_torch.ops.compact import compaction_order, stable_topk_indices
 from sfm_tpu_torch.geometry import epipolar
+from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul
 
 
@@ -89,36 +90,38 @@ def ransac_essential(x1, x2, mask=None, *, generator=None, minimal_sets=None,
     n = x1.shape[0]
     if mask is None:
         mask = torch.ones((n,), dtype=torch.bool, device=x1.device)
-    E_bank, _, T1, T2 = build_hypothesis_bank(
-        x1, x2, mask, n_hyps=n_hyps, sweeps=sweeps, generator=generator,
-        minimal_sets=minimal_sets)
-    x1n = x1 @ T1.T
-    x2n = x2 @ T2.T
+    with timing.span("geometry.bank"):
+        E_bank, _, T1, T2 = build_hypothesis_bank(
+            x1, x2, mask, n_hyps=n_hyps, sweeps=sweeps, generator=generator,
+            minimal_sets=minimal_sets)
+    with timing.span("geometry.score"):
+        counts = torch.cat([
+            torch.sum((epipolar.epipolar_residuals(E_bank[c:c + chunk], x1, x2)
+                       < threshold) & mask[None, :], dim=-1)
+            for c in range(0, n_hyps, chunk)
+        ])
+        best = torch.argmax(counts)
+        E = E_bank[best]
 
-    counts = torch.cat([
-        torch.sum((epipolar.epipolar_residuals(E_bank[c:c + chunk], x1, x2)
-                   < threshold) & mask[None, :], dim=-1)
-        for c in range(0, n_hyps, chunk)
-    ])
-    best = torch.argmax(counts)
-    E = E_bank[best]
+    with timing.span("geometry.refit"):
+        x1n = x1 @ T1.T
+        x2n = x2 @ T2.T
+        A_all = epipolar.eight_point_matrix(x1n, x2n)            # [N, 9]
+        r = epipolar.epipolar_residuals(E, x1, x2)
+        for _ in range(refit_iters):
+            w = ((r < threshold) & mask).to(x1.dtype)
+            G = (A_all * w[:, None]).T @ A_all
+            e = linalg.smallest_eigvec_power(G)
+            E_new = linalg.project_to_essential(
+                epipolar.denormalize_E(e.reshape(3, 3), T1, T2), sweeps=sweeps)
+            c_old = w.sum()
+            r_new = epipolar.epipolar_residuals(E_new, x1, x2)
+            c_new = ((r_new < threshold) & mask).sum()
+            take = c_new >= c_old
+            E = torch.where(take, E_new, E)
+            r = torch.where(take, r_new, r)
 
-    A_all = epipolar.eight_point_matrix(x1n, x2n)            # [N, 9]
-    r = epipolar.epipolar_residuals(E, x1, x2)
-    for _ in range(refit_iters):
-        w = ((r < threshold) & mask).to(x1.dtype)
-        G = (A_all * w[:, None]).T @ A_all
-        e = linalg.smallest_eigvec_power(G)
-        E_new = linalg.project_to_essential(
-            epipolar.denormalize_E(e.reshape(3, 3), T1, T2), sweeps=sweeps)
-        c_old = w.sum()
-        r_new = epipolar.epipolar_residuals(E_new, x1, x2)
-        c_new = ((r_new < threshold) & mask).sum()
-        take = c_new >= c_old
-        E = torch.where(take, E_new, E)
-        r = torch.where(take, r_new, r)
-
-    inl = (r < threshold) & mask
-    top_idx = stable_topk_indices(counts, max(min(topk, n_hyps), 1))
+        inl = (r < threshold) & mask
+        top_idx = stable_topk_indices(counts, max(min(topk, n_hyps), 1))
     return RansacResult(E=E, inliers=inl, num_inliers=inl.sum(),
                         best_index=best, counts=counts, topk_E=E_bank[top_idx])

@@ -21,8 +21,6 @@ Two rules of the JAX package's scatters are made explicit here:
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import NamedTuple
 
 import torch
@@ -34,6 +32,7 @@ from sfm_tpu_torch.models import bundle_adjust as ba
 from sfm_tpu_torch.ops.compact import compaction_order
 from sfm_tpu_torch.parallel import dist_ba, dist_match, mesh as meshmod
 from sfm_tpu_torch.sift import frontend, match as match_mod
+from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul
 
 
@@ -328,25 +327,6 @@ def _resolve_device(images, feats, device, mesh=None):
     return torch.device("cuda")
 
 
-@contextlib.contextmanager
-def _stage(timer, name, dev):
-    """With a ``utils.timing.StageTimer``: record the synchronized wall
-    time of the block under ``name``, inside a profiler range of that
-    name (so a trace attributes the block's kernels to it).  Without
-    one: nothing, and no sync."""
-    if timer is None:
-        yield
-        return
-    with torch.profiler.record_function(name):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        timer.record(name, time.perf_counter() - t0)
-
-
 @f32_matmul
 def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
                     seed: int = 0, pt_capacity: int | None = None,
@@ -387,7 +367,7 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
         ms = sets.get(i)
         return {"generator": gen} if ms is None else {"minimal_sets": ms}
 
-    with _stage(timer, "extract", dev):
+    with timing.span("extract", timer=timer):
         if feats is None:
             feats = [frontend.extract_sift(
                 torch.as_tensor(im, dtype=torch.float32, device=dev), cfg.sift)
@@ -402,14 +382,14 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
     state = _empty_state(n_images, kp_cap, pt_capacity, device=dev)
 
     def match(p, i):
-        with _stage(timer, "match", dev):
+        with timing.span("match", timer=timer):
             m = matcher(feats[p].descriptors, feats[i].descriptors,
                         feats[p].keypoints.valid, feats[i].keypoints.valid)
         return m.index, m.valid & kp_valid[p] & kp_valid[i][m.index]
 
     # --- bootstrap from images (0, 1): essential, pose, triangulation ---
     idx01, mask01 = match(0, 1)
-    with _stage(timer, "bootstrap", dev):
+    with timing.span("bootstrap", timer=timer):
         rc = cfg.ransac
         disp2 = torch.sum((uv_all[0] - uv_all[1][idx01]) ** 2, dim=-1)
         mask01 = mask01 & (disp2 > rc.min_disparity_px ** 2)
@@ -446,16 +426,16 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
             backs.append(backs[-1])
             midx.append(midx[-1])
             mok.append(torch.zeros_like(mok[-1]))
-        with _stage(timer, "register", dev):
+        with timing.span("register", timer=timer):
             state, _ = _register_image(
                 state, i, x_norm[i], backs, torch.stack([x_norm[p] for p in backs]),
                 torch.stack(midx), torch.stack(mok), cfg, **draws(i))
         if local_ba_iters:
-            with _stage(timer, "local_ba", dev):
+            with timing.span("local_ba", timer=timer):
                 state = _local_ba(state, i, uv_all, kp_valid, K_inv, local_ba_iters,
                                   local_ba_window, local_ba_obs_cap, n_back, kp_cap)
 
-    with _stage(timer, "local_ba", dev):
+    with timing.span("local_ba", timer=timer):
         if local_ba_iters and local_ba_obs_cap != 0:
             # Points that left every window are refreshed by one
             # point-only pass (every camera pinned) before the closure
@@ -471,11 +451,11 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
     closure_gate = cfg.ransac.threshold * 4 * closure_gate_mult
     for ci, cj in closure_pairs:
         idx, ok = match(ci, cj)
-        with _stage(timer, "closure", dev):
+        with timing.span("closure", timer=timer):
             state, _ = _apply_closure(state, ci, cj, x_norm[ci], x_norm[cj], idx, ok,
                                       closure_gate)
 
-    with _stage(timer, "global_ba", dev):
+    with timing.span("global_ba", timer=timer):
         state, costs, mean_reproj = _global_ba(state, uv_all, kp_valid, K_inv,
                                                ba_iters, mesh)
     return IncrementalResult(state=state, uv=uv_all, kp_valid=kp_valid,

@@ -36,7 +36,7 @@ from sfm_tpu_torch.geometry import lie
 from sfm_tpu_torch.geometry import triangulate as tri
 from sfm_tpu_torch.models import bundle_adjust as ba
 from sfm_tpu_torch.models import tracks as tracks_mod
-from sfm_tpu_torch.models.incremental import _stage
+from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul, f32_precision
 
 
@@ -438,10 +438,10 @@ def reconstruct_turntable(feats, R_chain, t_chain, K, cfg, *,
             raise ValueError("turntable init needs the bootstrap pair (frames 0, 1) "
                              "registered in the chain")
 
-    with _stage(timer, "tracks", dev):
+    with timing.span("tracks", timer=timer):
         pairs = tracks_mod.ring_pairs(n, gaps=gaps, wrap=wrap)
         ts = tracks_mod.build_tracks(feats, pairs, cfg, min_len=min_track_len)
-    with _stage(timer, "pinned_lm", dev):
+    with timing.span("pinned_lm", timer=timer):
         cam_idx_np = ts.cam_idx.cpu().numpy()
         pt_idx_np = ts.pt_idx.cpu().numpy()
         uv_n0 = torch.as_tensor((ts.uv_pix.cpu().numpy() - c_xy) / f0, device=dev)
@@ -503,7 +503,7 @@ def reconstruct_turntable(feats, R_chain, t_chain, K, cfg, *,
         f_est, k1, k2 = (float(v) for v in intr)
     _dbg("pinned LM", R)
 
-    with _stage(timer, "free_ba", dev):
+    with timing.span("free_ba", timer=timer):
         # --- annealed free BA from the turntable basin ---
         if estimate_intrinsics:
             uv_nd = undistort_pixels(ts.uv_pix, torch.as_tensor(c_xy, device=dev),
@@ -520,7 +520,7 @@ def reconstruct_turntable(feats, R_chain, t_chain, K, cfg, *,
             R, t, ts.cam_idx, ts.pt_idx, uv_nd, ts.mask, ts.n_tracks, f0,
             FREE_BA_SCHEDULE, ba_iters)
     _dbg("free BA", R, r_px, keep)
-    with _stage(timer, "snap", dev):
+    with timing.span("snap", timer=timer):
         # --- snap to the fitted uniform ring and re-polish ---
         phases = (2.0 * math.pi / n) * torch.arange(n, dtype=torch.float32, device=dev)
         for _ in range(snap_rounds):

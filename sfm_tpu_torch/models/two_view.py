@@ -5,9 +5,14 @@ SIFT x2 -> fused top-2 matcher -> compaction to ``geometry_cap`` slots
 -> RANSAC E -> multi-start probe refinement -> refine rounds ->
 translation re-vote rounds -> cheirality vote -> triangulation.
 PyTorch runs eagerly, so the JAX package's two jitted programs become
-plain function calls; the path
-stays free of host synchronisation (selections use ``torch.where``,
-counts stay on the device) so the card is fed without stalls.
+plain function calls.  Selections use ``torch.where`` and counts stay
+on the device, but the geometry still blocks on the host about 400
+times a bench pair: each small constant made on the card from a Python
+list (``geometry/lie.tangent_basis`` in every refine and probe step,
+``pose.pose_candidates``, ``ops/linalg.project_to_essential``) and each
+candidate picked by a 0-d index tensor (``pose.recover_pose``, the probe
+start, the bank's best) waits for the card (``utils/timing``'s
+``host_syncs`` counts them).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from sfm_tpu_torch.geometry import (camera, epipolar, pose, ransac, refine,
                                     triangulate as tri)
 from sfm_tpu_torch.ops.compact import compaction_order, stable_topk_indices
 from sfm_tpu_torch.sift import frontend, match as match_mod
+from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul
 
 
@@ -62,7 +68,6 @@ def _normalize_E(E):
                 / torch.linalg.vector_norm(E, dim=(-2, -1), keepdim=True))
 
 
-@f32_matmul
 def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
                       *, generator=None, minimal_sets=None) -> TwoViewResult:
     """RANSAC + pose + refine + triangulate from pixel correspondences.
@@ -70,6 +75,12 @@ def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
     ``generator`` draws the RANSAC minimal sets; ``minimal_sets``
     ([n_hyps, 8] indices) replaces the draw (parity tests).
     """
+    with timing.span("two_view.geometry"):
+        return _geometry(uv1, uv2, mask, K, cfg, generator, minimal_sets)
+
+
+@f32_matmul
+def _geometry(uv1, uv2, mask, K, cfg, generator, minimal_sets) -> TwoViewResult:
     K_inv = camera.inv_intrinsics(K)
     x1 = camera.normalize_points(uv1, K_inv)
     x2 = camera.normalize_points(uv2, K_inv)
@@ -84,16 +95,6 @@ def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
         minimal_sets=minimal_sets, n_hyps=rc.n_hyps, threshold=rc.threshold,
         chunk=rc.chunk, sweeps=rc.sweeps, refit_iters=rc.refit_iters,
         topk=max(cfg.restart_k, 1))
-
-    # The first vote only picks a branch; a subset compacted by RANSAC
-    # inlier membership decides it identically (cfg.vote_cap).
-    if cfg.vote_cap and cfg.vote_cap < n:
-        vsel = compaction_order(res.inliers)[: cfg.vote_cap]
-        x1v, x2v = x1[vsel], x2[vsel]
-        wv = res.inliers[vsel].to(x1.dtype)
-    else:
-        x1v, x2v = x1, x2
-        wv = res.inliers.to(x1.dtype)
 
     # Tight-count score lexicographically above the full valid count.
     score_mult = n + 1
@@ -114,22 +115,40 @@ def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
         return (r < rc.threshold) & mask, valid_k, score
 
     best = None
-    if cfg.restart_k > 0:
-        # Multi-start: all 4 branches of the LO-refit E plus the top-K
-        # bank draws, scored with the rounds' tight-count metric.
-        E_cands = _normalize_E(torch.cat([res.E[None], res.topk_E]))
-        Rs, ts = pose.pose_candidates(E_cands)
-        C = E_cands.shape[0]
-        Rs = Rs.reshape(C * 4, 3, 3)
-        ts = ts.reshape(C * 4, 3)
-        rb = epipolar.epipolar_residuals(E_cands, x1, x2)
-        rb = torch.repeat_interleave(rb, 4, dim=0)
-        z1b, z2b = tri.midpoint_depths(x1, x2, Rs, ts)
-        validb, scoreb = score_counts(rb, (z1b > 0) & (z2b > 0))
-        if cfg.probe_starts > 1:
-            # Probe refinement: refine the best branch of each of the
-            # top-S candidates briefly and start from the post-probe
-            # argmax.
+    with timing.span("geometry.multistart"):
+        # The first vote only picks a branch; a subset compacted by RANSAC
+        # inlier membership decides it identically (cfg.vote_cap).
+        if cfg.vote_cap and cfg.vote_cap < n:
+            vsel = compaction_order(res.inliers)[: cfg.vote_cap]
+            x1v, x2v = x1[vsel], x2[vsel]
+            wv = res.inliers[vsel].to(x1.dtype)
+        else:
+            x1v, x2v = x1, x2
+            wv = res.inliers.to(x1.dtype)
+        if cfg.restart_k > 0:
+            # Multi-start: all 4 branches of the LO-refit E plus the top-K
+            # bank draws, scored with the rounds' tight-count metric.
+            E_cands = _normalize_E(torch.cat([res.E[None], res.topk_E]))
+            Rs, ts = pose.pose_candidates(E_cands)
+            C = E_cands.shape[0]
+            Rs = Rs.reshape(C * 4, 3, 3)
+            ts = ts.reshape(C * 4, 3)
+            rb = epipolar.epipolar_residuals(E_cands, x1, x2)
+            rb = torch.repeat_interleave(rb, 4, dim=0)
+            z1b, z2b = tri.midpoint_depths(x1, x2, Rs, ts)
+            validb, scoreb = score_counts(rb, (z1b > 0) & (z2b > 0))
+            if cfg.probe_starts <= 1:
+                bsel = torch.argmax(scoreb)
+                R_cur, t_cur = Rs[bsel], ts[bsel]
+                w = validb[bsel]
+        else:
+            p = pose.recover_pose(res.E, x1v, x2v, weights=wv)
+            R_cur, t_cur = p["R"], p["t"]
+            w = res.inliers
+    if cfg.restart_k > 0 and cfg.probe_starts > 1:
+        # Probe refinement: refine the best branch of each of the top-S
+        # candidates briefly and start from the post-probe argmax.
+        with timing.span("geometry.probe"):
             sb4 = scoreb.reshape(C, 4)
             br = torch.argmax(sb4, dim=1)
             flat = torch.arange(C, device=x1.device) * 4 + br
@@ -148,23 +167,16 @@ def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
             w = validp[pw]
             inl_p = (rp[pw] < rc.threshold) & mask
             best = _consider((scorep[pw], E_p[pw], inl_p, R_cur, t_cur), best)
-        else:
-            bsel = torch.argmax(scoreb)
-            R_cur, t_cur = Rs[bsel], ts[bsel]
-            w = validb[bsel]
-    else:
-        p = pose.recover_pose(res.E, x1v, x2v, weights=wv)
-        R_cur, t_cur = p["R"], p["t"]
-        w = res.inliers
 
     for _ in range(max(cfg.refine_rounds, 1)):
-        ref = refine.refine_relative_pose(R_cur, t_cur, x1, x2, weights=w,
-                                          iters=cfg.refine_iters)
-        p2 = pose.recover_pose(ref.E, x1v, x2v, weights=wv)
-        inl, valid_k, score = score_E(ref.E, p2["R"], p2["t"])
-        best = _consider((score, ref.E, inl, p2["R"], p2["t"]), best)
-        R_cur, t_cur = p2["R"], p2["t"]
-        w = valid_k
+        with timing.span("geometry.refine"):
+            ref = refine.refine_relative_pose(R_cur, t_cur, x1, x2, weights=w,
+                                              iters=cfg.refine_iters)
+            p2 = pose.recover_pose(ref.E, x1v, x2v, weights=wv)
+            inl, valid_k, score = score_E(ref.E, p2["R"], p2["t"])
+            best = _consider((score, ref.E, inl, p2["R"], p2["t"]), best)
+            R_cur, t_cur = p2["R"], p2["t"]
+            w = valid_k
 
     # Translation re-vote rounds: re-vote t globally for the best round's
     # R (pose.cheirality_t_vote), enter the voted E as a candidate and
@@ -180,50 +192,56 @@ def two_view_geometry(uv1, uv2, mask, K, cfg: PipelineConfig = PipelineConfig(),
         return (score_s, vote["E"], inl_s, Rb, vote["t"]), valid_s
 
     for _ in range(cfg.tvote_rounds):
-        cand, valid_s = vote_candidate()
-        best = _consider(cand, best)
-        ref = refine.refine_relative_pose(cand[3], cand[4], x1, x2,
-                                          weights=valid_s, iters=cfg.refine_iters)
-        p2 = pose.recover_pose(ref.E, x1v, x2v, weights=wv)
-        inl, valid_k, score = score_E(ref.E, p2["R"], p2["t"])
-        best = _consider((score, ref.E, inl, p2["R"], p2["t"]), best)
+        with timing.span("geometry.tvote"):
+            cand, valid_s = vote_candidate()
+            best = _consider(cand, best)
+            ref = refine.refine_relative_pose(cand[3], cand[4], x1, x2,
+                                              weights=valid_s, iters=cfg.refine_iters)
+            p2 = pose.recover_pose(ref.E, x1v, x2v, weights=wv)
+            inl, valid_k, score = score_E(ref.E, p2["R"], p2["t"])
+            best = _consider((score, ref.E, inl, p2["R"], p2["t"]), best)
     if cfg.tvote_rounds > 0:
-        best = _consider(vote_candidate()[0], best)
+        with timing.span("geometry.tvote"):
+            best = _consider(vote_candidate()[0], best)
 
-    _, E_fin, inl, _, _ = best
-    pf = pose.recover_pose(E_fin, x1, x2, weights=inl.to(x1.dtype))
-    R_fin, t_fin = pf["R"], pf["t"]
-    X = pf["points"]
-    pt_valid = inl & pf["front"] & pf["finite"]
-    errs = tri.reprojection_errors(X, x1, x2, R_fin, t_fin)
-    denom = torch.clamp(pt_valid.sum(), min=1)
-    mean_err = torch.sum(torch.where(pt_valid, errs, torch.zeros_like(errs))) / denom
-    return TwoViewResult(
-        R=R_fin, t=t_fin, E=E_fin, points=X, point_valid=pt_valid,
-        uv1=uv1, uv2=uv2, inliers=inl, num_inliers=inl.sum(),
-        num_matches=mask.sum(), reproj_err=mean_err,
-    )
+    with timing.span("geometry.final"):
+        _, E_fin, inl, _, _ = best
+        pf = pose.recover_pose(E_fin, x1, x2, weights=inl.to(x1.dtype))
+        R_fin, t_fin = pf["R"], pf["t"]
+        X = pf["points"]
+        pt_valid = inl & pf["front"] & pf["finite"]
+        errs = tri.reprojection_errors(X, x1, x2, R_fin, t_fin)
+        denom = torch.clamp(pt_valid.sum(), min=1)
+        mean_err = torch.sum(torch.where(pt_valid, errs, torch.zeros_like(errs))) / denom
+        return TwoViewResult(
+            R=R_fin, t=t_fin, E=E_fin, points=X, point_valid=pt_valid,
+            uv1=uv1, uv2=uv2, inliers=inl, num_inliers=inl.sum(),
+            num_matches=mask.sum(), reproj_err=mean_err,
+        )
 
 
 def match_stage(s1, s2, cfg: PipelineConfig):
     """Match two SIFT results and compact the correspondences to
     ``geometry_cap`` slots (valid first; matches beyond the cap are
     dropped, never corrupted)."""
-    m = match_mod.match(s1.descriptors, s2.descriptors, s1.keypoints.valid,
-                        s2.keypoints.valid, cfg.match)
-    uv1, uv2, mask = gather_correspondences(s1.keypoints, s2.keypoints, m)
-    cap = cfg.geometry_cap
-    if cap and cap < mask.shape[0]:
-        order = compaction_order(mask)[:cap]
-        uv1, uv2, mask = uv1[order], uv2[order], mask[order]
-    return uv1, uv2, mask
+    with timing.span("two_view.match_stage"):
+        m = match_mod.match(s1.descriptors, s2.descriptors, s1.keypoints.valid,
+                            s2.keypoints.valid, cfg.match)
+        with timing.span("match.compact"):
+            uv1, uv2, mask = gather_correspondences(s1.keypoints, s2.keypoints, m)
+            cap = cfg.geometry_cap
+            if cap and cap < mask.shape[0]:
+                order = compaction_order(mask)[:cap]
+                uv1, uv2, mask = uv1[order], uv2[order], mask[order]
+        return uv1, uv2, mask
 
 
 def frontend_stage(img1, img2, cfg: PipelineConfig = PipelineConfig()):
     """SIFT on both images, then the match stage."""
-    s1 = frontend.extract_sift(img1, cfg.sift)
-    s2 = frontend.extract_sift(img2, cfg.sift)
-    return match_stage(s1, s2, cfg)
+    with timing.span("two_view.frontend"):
+        s1 = frontend.extract_sift(img1, cfg.sift)
+        s2 = frontend.extract_sift(img2, cfg.sift)
+        return match_stage(s1, s2, cfg)
 
 
 def two_view_pipeline(img1, img2, K, generator,

@@ -12,7 +12,9 @@ Each C entry point launches on the stream it is given (PyTorch's
 current stream), allocates nothing and returns ``cudaGetLastError()``;
 :func:`check` raises on a non-zero code.  Every wrapper counts its
 launches in :data:`LAUNCHES` so a run can show which kernels it went
-through.
+through.  :func:`library` runs in a span named ``kernels.nvcc`` where it
+compiles and ``kernels.load`` where it loads, so the program's first
+calls (``utils/timing.first_calls``) hold each one's seconds.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import shutil
 import subprocess
 
 import torch
+
+from sfm_tpu_torch.utils import timing
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -98,6 +102,13 @@ class _Library:
 _LIB: _Library | None = None
 
 
+def launched(name: str):
+    """Count one launch of the kernel ``name`` in :data:`LAUNCHES` and
+    in the program's ``kernel_launches`` (``utils/timing``)."""
+    LAUNCHES[name] += 1
+    timing.count_launch()
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -129,19 +140,21 @@ def library() -> _Library:
     so = BUILD_DIR / f"libsfm_kernels_{h.hexdigest()[:16]}.so"
     log = ""
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        with timing.span("kernels.nvcc"):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+    with timing.span("kernels.load"):
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     _LIB = _Library(lib, so, log)
     return _LIB
 

@@ -292,7 +292,7 @@ def detect_maps_octaves(bases, taps, thresh: float, edge_limit: float,
             int(lean), _cuda.sm_count(dev), float(thresh), float(edge_limit),
             _cuda.stream_ptr(dev))
         _cuda.check(code, "detect_maps")
-        _cuda.LAUNCHES["detect_maps"] += 1
+        _cuda.launched("detect_maps")
     return outs
 
 

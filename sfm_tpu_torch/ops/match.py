@@ -172,5 +172,5 @@ def match_top2(desc1, desc2, valid2=None, *, bf16: bool = True):
         cols, 0 if split2 is None else split2.data_ptr(), *ptrs, best.data_ptr(),
         second.data_ptr(), index.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(code, "match_top2")
-    _cuda.LAUNCHES["match_top2"] += 1
+    _cuda.launched("match_top2")
     return best, second, index

@@ -224,7 +224,7 @@ def _launch_chain(img, pre, sd, levels: int) -> list:
         img.data_ptr(), H, W, *plan.args, out.data_ptr(), sync.data_ptr(),
         plan.blocks, stream)
     _cuda.check(code, "base_chain")
-    _cuda.LAUNCHES["base_chain"] += 1
+    _cuda.launched("base_chain")
     return [out.as_strided((h, w), (w, 1), off)
             for (h, w), off in zip(plan.shapes, plan.offsets)]
 
@@ -272,5 +272,5 @@ def scale_up(img):
     code = _cuda.library().lib.sfm_scale_up(img.data_ptr(), H, W, out.data_ptr(),
                                             _cuda.stream_ptr(dev))
     _cuda.check(code, "scale_up")
-    _cuda.LAUNCHES["scale_up"] += 1
+    _cuda.launched("scale_up")
     return out

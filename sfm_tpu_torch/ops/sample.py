@@ -199,7 +199,7 @@ def _fused(name, atlas, x, y, scale, count):
         t.sup.data_ptr(), d1.data_ptr(), ori1.data_ptr(), ori2.data_ptr(),
         dup.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(code, name)
-    _cuda.LAUNCHES[name] += 1
+    _cuda.launched(name)
     return d1, ori1, ori2, dup
 
 
@@ -238,7 +238,7 @@ def descriptor_sample(atlas, x, y, scale, ori, count=None):
         scale.data_ptr(), ori.data_ptr(), count.data_ptr(), K, t.w2d.data_ptr(),
         t.sup_off.data_ptr(), t.sup.data_ptr(), out.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(code, "descriptor_sample")
-    _cuda.LAUNCHES["descriptor_sample"] += 1
+    _cuda.launched("descriptor_sample")
     return out
 
 
@@ -258,5 +258,5 @@ def orientation_histogram_sample(img, x, y, scale, count=None):
         scale.data_ptr(), count.data_ptr(), K, out.data_ptr(),
         _cuda.stream_ptr(dev))
     _cuda.check(code, "orientation_histogram_sample")
-    _cuda.LAUNCHES["orientation_histogram_sample"] += 1
+    _cuda.launched("orientation_histogram_sample")
     return out

@@ -48,6 +48,7 @@ from sfm_tpu_torch.ops.sample import (descriptor_sample, fused_orient_descriptor
                                      fused_orient_descriptor_win,
                                      orientation_histogram_sample)
 from sfm_tpu_torch.sift import describe, detect as detect_mod, orient, pyramid
+from sfm_tpu_torch.utils import timing
 
 _GUARD = 48  # vertical guard rows between octaves (>= descriptor patch)
 # sample_window -> the fused sampling kernel, the same function either
@@ -144,23 +145,28 @@ def detect_stage(img, cfg: SiftConfig):
     2**o``) and the per-octave selection, or with ``fused_detect=False``
     the dense DoG detector octave by octave.  Returns (atlas, detections
     with y in atlas rows)."""
-    bases = pyramid.base_chain(img, cfg)
+    with timing.span("sift.chain"):
+        bases = pyramid.base_chain(img, cfg)
     offsets, subs = atlas_layout(img.shape, cfg)
     if cfg.fused_detect is False:
         dets = []
         for o, (base, sub) in enumerate(zip(bases, subs)):
-            dog = pyramid.build_octave(base, cfg, o, sub).dog
-            dets.append(detect_mod.detect(dog, _octave_cfg(cfg, o), sub))
+            with timing.span("sift.detect"):
+                dog = pyramid.build_octave(base, cfg, o, sub).dog
+                dets.append(detect_mod.detect(dog, _octave_cfg(cfg, o), sub))
             del dog   # the volume goes before the next octave's is built
     else:
-        maps = detect_maps_octaves(bases, _tap_banks(cfg), float(cfg.thresh),
-                                   float(cfg.edge_limit),
-                                   [float(cfg.lowest_scale / s) for s in subs],
-                                   cfg.detect_lean)
-        dets = [detect_mod.select_from_maps(resp, aux, _octave_cfg(cfg, o))
-                for o, (resp, aux) in enumerate(maps)]
-    dets = [d._replace(y=d.y + off) for d, off in zip(dets, offsets)]
-    return build_atlas(bases), dets
+        with timing.span("sift.detect"):
+            maps = detect_maps_octaves(bases, _tap_banks(cfg), float(cfg.thresh),
+                                       float(cfg.edge_limit),
+                                       [float(cfg.lowest_scale / s) for s in subs],
+                                       cfg.detect_lean)
+        with timing.span("sift.select"):
+            dets = [detect_mod.select_from_maps(resp, aux, _octave_cfg(cfg, o))
+                    for o, (resp, aux) in enumerate(maps)]
+    with timing.span("sift.atlas"):
+        dets = [d._replace(y=d.y + off) for d, off in zip(dets, offsets)]
+        return build_atlas(bases), dets
 
 
 @functools.lru_cache(maxsize=16)
@@ -239,40 +245,42 @@ def sample_stage(atlas, offsets, subs, dets, cfg: SiftConfig) -> SiftResult:
     K9, K5) or, with ``use_pallas=False``, two-stage (K8, K5)."""
     dev = atlas.device
     n = [d.x.shape[0] for d in dets]
-    fields = {f: torch.cat([getattr(d, f) for d in dets])
-              for f in ("x", "y", "scale", "sharpness", "edgeness", "valid")}
-    fields["octave"] = torch.cat([torch.full((k,), i, dtype=torch.int64, device=dev)
-                                  for i, k in enumerate(n)])
-    fields["sub"] = torch.cat([torch.full((k,), s, dtype=torch.float32, device=dev)
-                               for k, s in zip(n, subs)])
-    fields["off"] = torch.cat([torch.full((k,), float(o), dtype=torch.float32, device=dev)
-                               for k, o in zip(n, offsets)])
-    order = _sample_order(fields["valid"], fields["sharpness"], cfg.sample_cap, n)
-    f = {k: v[order] for k, v in fields.items()}
-    if cfg.use_pallas is False:
-        raw, ori, valid, order2 = _two_stage_sampling(
-            atlas, f["x"], f["y"], f["scale"], f["valid"], cfg)
-        f = {k: torch.cat([v, v])[order2] for k, v in f.items()}
-    else:   # slot i and its duplicate slot i + K
-        raw, ori, valid = _fused_sampling(atlas, f["x"], f["y"], f["scale"],
-                                          f["valid"], cfg)
-        f = {k: torch.cat([v, v]) for k, v in f.items()}
-    desc = describe.normalize_descriptors(raw) * valid[:, None]
-    sub = f["sub"]
-    kp = Keypoints(
-        x=f["x"] * sub,
-        y=(f["y"] - f["off"]) * sub,
-        scale=f["scale"] * sub,
-        sharpness=f["sharpness"],
-        edgeness=f["edgeness"],
-        orientation=ori,
-        octave=f["octave"],
-        valid=valid,
-    )
-    if cfg.up_scale:
-        # Back to input-image pixels (reference RescalePositions(0.5)).
-        kp = kp._replace(x=kp.x * 0.5, y=kp.y * 0.5, scale=kp.scale * 0.5)
-    return SiftResult(keypoints=kp, descriptors=desc)
+    with timing.span("sift.sample"):
+        fields = {f: torch.cat([getattr(d, f) for d in dets])
+                  for f in ("x", "y", "scale", "sharpness", "edgeness", "valid")}
+        fields["octave"] = torch.cat([torch.full((k,), i, dtype=torch.int64, device=dev)
+                                      for i, k in enumerate(n)])
+        fields["sub"] = torch.cat([torch.full((k,), s, dtype=torch.float32, device=dev)
+                                   for k, s in zip(n, subs)])
+        fields["off"] = torch.cat([torch.full((k,), float(o), dtype=torch.float32,
+                                              device=dev) for k, o in zip(n, offsets)])
+        order = _sample_order(fields["valid"], fields["sharpness"], cfg.sample_cap, n)
+        f = {k: v[order] for k, v in fields.items()}
+        if cfg.use_pallas is False:
+            raw, ori, valid, order2 = _two_stage_sampling(
+                atlas, f["x"], f["y"], f["scale"], f["valid"], cfg)
+            f = {k: torch.cat([v, v])[order2] for k, v in f.items()}
+        else:   # slot i and its duplicate slot i + K
+            raw, ori, valid = _fused_sampling(atlas, f["x"], f["y"], f["scale"],
+                                              f["valid"], cfg)
+            f = {k: torch.cat([v, v]) for k, v in f.items()}
+    with timing.span("sift.describe"):
+        desc = describe.normalize_descriptors(raw) * valid[:, None]
+        sub = f["sub"]
+        kp = Keypoints(
+            x=f["x"] * sub,
+            y=(f["y"] - f["off"]) * sub,
+            scale=f["scale"] * sub,
+            sharpness=f["sharpness"],
+            edgeness=f["edgeness"],
+            orientation=ori,
+            octave=f["octave"],
+            valid=valid,
+        )
+        if cfg.up_scale:
+            # Back to input-image pixels (reference RescalePositions(0.5)).
+            kp = kp._replace(x=kp.x * 0.5, y=kp.y * 0.5, scale=kp.scale * 0.5)
+        return SiftResult(keypoints=kp, descriptors=desc)
 
 
 def extract_sift(img, cfg: SiftConfig = SiftConfig()) -> SiftResult:
@@ -281,7 +289,8 @@ def extract_sift(img, cfg: SiftConfig = SiftConfig()) -> SiftResult:
     Capacity: 2 * min(sample_cap, total detection slots) keypoints with
     validity masks, descriptors L2-normalized.
     """
-    check_supported(cfg)
-    offsets, subs = atlas_layout(tuple(img.shape), cfg)
-    atlas, dets = detect_stage(img, cfg)
-    return sample_stage(atlas, offsets, subs, dets, cfg)
+    with timing.span("sift.extract"):
+        check_supported(cfg)
+        offsets, subs = atlas_layout(tuple(img.shape), cfg)
+        atlas, dets = detect_stage(img, cfg)
+        return sample_stage(atlas, offsets, subs, dets, cfg)

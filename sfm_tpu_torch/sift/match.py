@@ -14,6 +14,7 @@ import torch
 
 from sfm_tpu_torch.config import MatchConfig
 from sfm_tpu_torch.ops.match import match_top2
+from sfm_tpu_torch.utils import timing
 
 
 class Matches(NamedTuple):
@@ -40,16 +41,22 @@ def match(desc1, desc2, valid1=None, valid2=None,
           cfg: MatchConfig = MatchConfig()) -> Matches:
     """Match [N1, 128] against [N2, 128]: argmax correlation, ratio
     ``second / (best + 1e-6) < max_ambiguity`` and optional cross-check."""
-    n1 = desc1.shape[0]
-    if valid1 is None:
-        valid1 = torch.ones(n1, dtype=torch.bool, device=desc1.device)
-    bf16 = cfg.bf16 and cfg.use_pallas is not False   # False: the f32 top-2
-    m = ratio_test(*match_top2(desc1, desc2, valid2, bf16=bf16), valid1, cfg)
-    if cfg.mutual:
-        _, _, ridx = match_top2(desc2, desc1, valid1, bf16=bf16)
-        m = m._replace(valid=m.valid & (ridx.to(torch.int64)[m.index]
-                                        == torch.arange(n1, device=desc1.device)))
-    return m
+    with timing.span("match.match"):
+        n1 = desc1.shape[0]
+        if valid1 is None:
+            valid1 = torch.ones(n1, dtype=torch.bool, device=desc1.device)
+        bf16 = cfg.bf16 and cfg.use_pallas is not False   # False: the f32 top-2
+        with timing.span("match.top2"):
+            top2 = match_top2(desc1, desc2, valid2, bf16=bf16)
+        with timing.span("match.ratio"):
+            m = ratio_test(*top2, valid1, cfg)
+        if cfg.mutual:
+            with timing.span("match.top2"):
+                _, _, ridx = match_top2(desc2, desc1, valid1, bf16=bf16)
+            with timing.span("match.ratio"):
+                m = m._replace(valid=m.valid & (ridx.to(torch.int64)[m.index]
+                                                == torch.arange(n1, device=desc1.device)))
+        return m
 
 
 def ratio_test(best, second, index, valid1, cfg: MatchConfig) -> Matches:

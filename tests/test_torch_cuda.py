@@ -1125,3 +1125,76 @@ def test_match_use_pallas_false_launches_k6_f32(dev, monkeypatch):
         md = dm.dist_match(d1, d2, None, v2, cfg, mesh=mesh)
     assert modes == [False, False]
     assert torch.equal(md.index, m.index) and torch.equal(md.score, m.score)
+
+
+def _profiled(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA) inside the
+    benchmark's slice range: (fn's result, the slice's profile)."""
+    from portbench.harness import trace
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(trace.SLICE):
+            out = fn()
+            torch.cuda.synchronize()
+    return out, trace.read_profile(prof, (), 1)
+
+
+def test_host_syncs_count_each_planted_sync(dev):
+    """Under the profiler, a span's ``host_syncs`` counts each blocking
+    read back: three ``.item()`` calls and one boolean-mask index (its
+    ``nonzero`` reads the count back) inside their spans, none for
+    device-side work; the sync debug mode is restored after."""
+    from sfm_tpu_torch.utils import timing
+
+    x = torch.arange(64, device=dev, dtype=torch.float32)
+    timing.reset()
+
+    def planted():
+        with timing.span("planted.outer"):
+            with timing.span("planted.item"):
+                for _ in range(3):
+                    x.sum().item()
+            with timing.span("planted.mask"):
+                y = x[x > 40.0]
+            with timing.span("planted.none"):
+                z = (x * 2.0).cumsum(0)
+        return y, z
+
+    _profiled(planted)
+    recs = {r.name: r for r in timing.records()}
+    assert recs["planted.item"].host_syncs == 3
+    assert recs["planted.mask"].host_syncs == 1
+    assert recs["planted.none"].host_syncs == 0
+    assert recs["planted.outer"].host_syncs == 4
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_k6_launch_falls_inside_match_top2(dev):
+    """K6's launch (the runtime call the profiler ties to its kernel)
+    falls inside the program's ``match.top2`` span, which counts its one
+    launch."""
+    from sfm_tpu_torch.config import MatchConfig
+    from sfm_tpu_torch.sift import match
+    from sfm_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(9)
+    d1, d2 = (torch.nn.functional.normalize(torch.as_tensor(
+        rng.normal(size=(n, 128)).astype(np.float32), device=dev), dim=1)
+        for n in (1500, 2048))
+    match.match(d1, d2, None, None, MatchConfig())
+    timing.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        match.match(d1, d2, None, None, MatchConfig())
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    k6 = {e.correlation_id() for e in events
+          if e.device_type() == torch.autograd.DeviceType.CUDA and "match_tc_kernel" in e.name()}
+    launches = [e.start_ns() for e in events
+                if e.device_type() == torch.autograd.DeviceType.CPU
+                and e.correlation_id() in k6 and e.name().startswith("cuda")]
+    (top2,) = [r for r in timing.records() if r.name == "match.top2"]
+    assert len(k6) == 1 and len(launches) == 1
+    assert top2.t0_ns <= launches[0] <= top2.t1_ns
+    assert top2.kernel_launches == 1
