@@ -33,7 +33,13 @@ Phases, each of which fails the run on any error:
    (``slice_config``) on a 720 x 576 synthetic textured pair
    (``tests/synthetic_pair.py``) over 8 RANSAC seeds, gated against the
    JAX package's numbers on the same pair and the rendered ground-truth
-   pose;
+   pose; then K10 (``refine_relative_pose``) on the inputs one pair of
+   that path hands it, the probe's 8 starts x 6 steps and the first
+   round's 1 start x 10 steps at 2,560 correspondences, against the
+   plain route in float32 and float64 (as ``tests/test_torch_cuda.py``
+   holds it), with K10's device ms, the plain route's device ms and
+   launches (from a profile) and host ms beside it, and digests of
+   K10's outputs;
 5. the up-scale path: tools/bench_upscale.py's up_t2.0 config
    (``upscale_config``: a 1280 x 960 input up-scaled to a 2560 x 1920
    base) on the rotation-only synthetic pair (``rotation_pair``):
@@ -145,12 +151,12 @@ Each of the main paths (phases 4 to 12) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
 it goes through, the base chain exactly once per image and K3 once per
 image and 8 octaves it extracts, K6 once per matched pair on the
-sequence, and together they launch all eight
+sequence, K10 three times a bench pair, and together they launch all nine
 (K1 and K2 are one kernel).  The last lines of
 standard output are the kernels' JSON record (each kernel's
 ``launches`` summed over those paths, its ``max_abs_err`` the largest
 of phases 3, 5, 6 and 12, its times and bound phase 3's, or phase 5's
-for K7 and phase 6's for K8; K3's gated mode under ``gated``, at both
+for K7, phase 6's for K8 and phase 4's for K10; K3's gated mode under ``gated``, at both
 shapes; K6's f32 mode under ``f32`` and K8 and K5 at the XLA route's
 shapes under ``xla_route``, from phase 12),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -319,7 +325,16 @@ PEAK_OPS = 32 * 11
 
 # Where each kernel's time and bound are taken: the bench path's shapes,
 # unless the bench path does not launch it.
-TIMED_AT = {"scale_up": "upscale", "orientation_histogram_sample": "module_api"}
+TIMED_AT = {"scale_up": "upscale", "orientation_histogram_sample": "module_api",
+            "refine_relative_pose": "pair_geometry"}
+
+# Operations per correspondence of one K10 step, counted from
+# csrc/refine.cu as the sampling kernels' above: the normal pass 300
+# (the lines, numerator and denominator 37, the clamped root and its
+# cube 8, five derivative columns of 41, the Huber weight 5, the 20
+# sums 45), the trial pass's cost 47; one more cost pass at the start.
+REFINE_STEP_OPS = 347
+REFINE_START_OPS = 47
 
 
 def k3_launches(images: int, octaves: int = 5) -> int:
@@ -365,6 +380,9 @@ PATH_K3 = {"bench": k3_launches(16), "upscale": k3_launches(2),
 # K6 launches where a path fixes them: the sequence's matcher calls; the
 # ring's chain matches, then one per ring pair in build_tracks; the
 # mesh run's matcher calls (dist_match: one launch on the rank's block).
+# K10 launches on the bench path: the probe and two refine rounds a pair
+# (bench.py's config: tvote_rounds 0), 8 seeds.
+PATH_K10 = {"bench": 3 * 8}
 PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
            + sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES)),
            "ring": sequence_matches(RING_FRAMES) + RING_PAIRS,
@@ -372,14 +390,15 @@ PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
 # Kernels each main path must launch (phases 4 to 11).
 _BASE = {"base_chain", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
-    "bench": _BASE | {"fused_orient_descriptor", "match_top2"},
+    "bench": _BASE | {"fused_orient_descriptor", "match_top2", "refine_relative_pose"},
     "upscale": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "module_api": _BASE | {"orientation_histogram_sample"},
     "upscale_window": _BASE | {"scale_up", "fused_orient_descriptor_win",
                                "match_top2"},
     "upscale_lowest": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
-    "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
-    "sequence": _BASE | {"fused_orient_descriptor", "match_top2"},
+    "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2",
+                    "refine_relative_pose"},
+    "sequence": _BASE | {"fused_orient_descriptor", "match_top2", "refine_relative_pose"},
     "ring": _BASE | {"fused_orient_descriptor", "match_top2"},
     "distributed": _BASE | {"fused_orient_descriptor", "match_top2"},
 }
@@ -538,6 +557,8 @@ KERNEL_SOURCES = {
                                      "sfm_tpu/ops/pallas_sample.py:578"),
     "fused_orient_descriptor_win": ("sfm_tpu_torch/csrc/sample.cu",
                                     "sfm_tpu/ops/pallas_sample.py:998"),
+    "refine_relative_pose": ("sfm_tpu_torch/csrc/refine.cu",
+                             "none: sfm_tpu/geometry/refine.py runs jax.jacfwd under XLA"),
 }
 
 
@@ -558,6 +579,10 @@ def check_path_launches(path, launches, gates):
         gates.check(launches["match_top2"] == PATH_K6[path],
                     f"K6 launched {launches['match_top2']} times on the {path} "
                     f"path, not {PATH_K6[path]}")
+    if path in PATH_K10:
+        gates.check(launches["refine_relative_pose"] == PATH_K10[path],
+                    f"K10 launched {launches['refine_relative_pose']} times on the "
+                    f"{path} path, not {PATH_K10[path]}")
 
 
 def _conv(taps, stride, dev):
@@ -1090,6 +1115,88 @@ def end_to_end(pair, cfg, gates, dev, card):
     log(f"launches in the 8-pair run: {launches}")
     check_path_launches("bench", launches, gates)
     return launches, med, rows
+
+
+def hold_refine(pair, cfg, gates, dev):
+    """K10 on one bench pair's own inputs: the probe's call (8 starts x 6
+    steps) and the first refine round's (1 start x 10 steps), captured
+    from ``two_view_pipeline``.  Each against the plain route in float32
+    and float64, as ``tests/test_torch_cuda.py`` holds it (K10's error
+    to float64 within the plain f32 route's own plus 1e-4 relative in
+    the costs, 5e-4 deg in R and 1.5e-3 in t: on this narrow field both
+    f32 routes drift ~2e-4 deg in R and ~1e-3 in t, against 2e-3 in both
+    on the tests' wide scenes); K10's CUDA-event and device ms,
+    the plain route's host ms (a synchronized call on the host clock)
+    and its device ms and launches (a profile), and a digest of K10's
+    outputs.  Returns {"refine_relative_pose": the probe's record, with
+    the round's under "rounds"}."""
+    import hashlib
+    import torch
+
+    from synthetic_pair import pose_errors_deg
+    from sfm_tpu_torch.geometry import refine
+    from sfm_tpu_torch.models import two_view
+
+    img1, img2, K = (torch.as_tensor(pair[k], device=dev) for k in ("img1", "img2", "K"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with spy(refine, "refine_relative_pose") as calls:
+        two_view.two_view_pipeline(img1, img2, K, gen, cfg)
+    torch.cuda.synchronize()
+    out = {}
+    for where, (args, kwargs, _, _) in (("probe", calls[0]), ("rounds", calls[1])):
+        R0, t0, x1, x2 = args
+        w, iters = kwargs["weights"], kwargs["iters"]
+        k_fn = lambda: refine.refine_relative_pose(R0, t0, x1, x2, weights=w, iters=iters)
+        p_fn = lambda: refine.refine_relative_pose_plain(R0, t0, x1, x2, weights=w,
+                                                         iters=iters)
+        k, p = k_fn(), p_fn()
+        p64 = refine.refine_relative_pose_plain(
+            *(a.double() for a in (R0, t0, x1, x2)), weights=w.double(), iters=iters)
+        err = {}
+        for name in ("cost", "initial_cost"):
+            e_k, e_p = ((getattr(r, name).double().cpu() - getattr(p64, name).cpu()).abs()
+                        / getattr(p64, name).abs().cpu() for r in (k, p))
+            err[name] = (float(e_k.max()), float(e_p.max()))
+            gates.check(bool((e_k <= e_p + 1e-4).all()),
+                        f"K10 {where}: {name} error {e_k.tolist()} past the plain "
+                        f"route's {e_p.tolist()} + 1e-4")
+        host = lambda r: (r.R.cpu().numpy().reshape(-1, 3, 3), r.t.cpu().numpy().reshape(-1, 3))
+        for name, a_k, a_p, tol in zip(("rot_deg", "t_deg"),
+                                       pose_errors_deg(*host(k), *host(p64)),
+                                       pose_errors_deg(*host(p), *host(p64)), (5e-4, 1.5e-3)):
+            err[name] = (float(a_k.max()), float(a_p.max()))
+            gates.check(bool((a_k <= a_p + tol).all()),
+                        f"K10 {where}: {name} to float64 {a_k.tolist()} past the plain "
+                        f"route's {a_p.tolist()} + {tol}")
+        B, n = R0.reshape(-1, 9).shape[0], x1.shape[0]
+        t_host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p_fn()
+            torch.cuda.synchronize()
+            t_host.append((time.perf_counter() - t1) * 1e3)
+        plain_launches, plain_dev = profile_launches(p_fn)
+        shapes = f"B {B} x {iters} steps, N {n}"
+        rec = kernel_record(
+            "refine_relative_pose", max(float((k.R - p.R).abs().max()),
+                                        float((k.t - p.t).abs().max())),
+            k_fn, p_fn, shapes, n * (24 + 4 * (w.numel() // n)) + B * 4 * (2 * 12 + 11),
+            B * n * (REFINE_STEP_OPS * iters + REFINE_START_OPS), plain_reps=3)
+        rec.update(errors_vs_float64=err, plain_host_ms=sorted(t_host)[1],
+                   plain_device_ms=plain_dev, plain_launches=plain_launches,
+                   digest=hashlib.sha256(b"".join(v.cpu().numpy().tobytes() for v in k)
+                                         ).hexdigest()[:16])
+        log(f"K10 {where} ({shapes}): {rec['device_ms']:.4f} device ms, "
+            f"{rec['ms']:.4f} ms; plain route {rec['plain_host_ms']:.1f} host ms, "
+            f"{plain_dev:.3f} device ms in {plain_launches} launches; bound "
+            f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}); errors to float64 "
+            f"(K10, plain f32) {err}; digest {rec['digest']}")
+        out[where] = rec
+    rec = out["probe"]
+    rec["rounds"] = out["rounds"]
+    return {"refine_relative_pose": rec}
 
 
 class HFit(NamedTuple):
@@ -2678,6 +2785,7 @@ def main() -> int:
     wide = hold_k3_planes(img1, gates)
     launches = {}
     launches["bench"], med, rows = end_to_end(pair, cfg, gates, dev, card)
+    held["pair_geometry"] = hold_refine(pair, cfg, gates, dev)
     up, held["upscale"] = upscale_path(rpair, gates, dev, card)
     launches["upscale"] = up["launches"]
     low = upscale_lowest_path(rpair, up, gates, dev, card)

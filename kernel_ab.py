@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B times of the port's base chain (K1 + K2), K3 (detection maps),
-K4, K5, K8 and K9 (keypoint sampling) and K6 (matcher) kernels for two
-or more checkouts of the repository, on one card.
+K4, K5, K8 and K9 (keypoint sampling), K6 (matcher) and K10 (pose
+refinement) kernels for two or more checkouts of the repository, on
+one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -38,7 +39,11 @@ device milliseconds alone (the calls queued behind a spin kernel) of
 - K8 as the module API runs it on the bench image (all 5,120 detection
   slots, compacted valid-first) and on the up-scale image's capped
   slots; and K4, K8 and K9 on the bench slots with 0 and 1 of them live
-  (a launch's floor, and one warp's latency),
+  (a launch's floor, and one warp's latency);
+- K10 (``refine_relative_pose``, however the tree runs it: the plain
+  ``jvp`` route before K10) at the bench pair's shapes, 8 starts x 6
+  steps and 1 x 10 at 2,560 seeded correspondences, also profiled
+  (device operations and their device ms; ``launches`` in the record),
 
 with a digest (SHA-256) of each kernel's outputs there, so that one
 call shows whether the trees' outputs are equal bit for bit as well as
@@ -66,7 +71,7 @@ keep, lines = False, []
 for line in _cuda.library().build_log.splitlines():
     if "Compiling entry function" in line:
         keep = any(k in line for k in ("detect", "match", "fused", "descriptor",
-                                       "orientation", "chain", "blur", "decim"))
+                                       "orientation", "chain", "blur", "decim", "refine"))
     if (keep and ("entry" in line or "registers" in line or "spill" in line)
             or "Performance Loss" in line):
         lines.append(line.strip())
@@ -194,6 +199,27 @@ for name, img, sc in () if K6_ONLY else (
     key = f"K5 {name} {x.shape[0]} slots, {int(c2)} live"
     out["ms"][key] = (cuda_ms(fn), device_ms(fn))
     out["digest"][key] = digest((fn(),))
+# K10 (refine_relative_pose) at the bench pair's shapes, however the tree
+# runs it (the plain jvp route before K10): the tests' seeded scene of
+# 2,560 correspondences (tests/synthetic_pair.py:refine_problem, of this
+# checkout), the probe's 8 starts x 6 steps and a round's 1 x 10, with
+# float [B, N] weights as the probe has them.
+from sfm_tpu_torch.geometry import refine
+spec = importlib.util.spec_from_file_location(
+    "ab_scene", os.path.join(os.path.dirname(sys.argv[1]), "tests", "synthetic_pair.py"))
+scene = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(scene)
+n = 2560
+R0, t0, x1, x2, _, w0 = (torch.as_tensor(a, device=dev)
+                         for a in scene.refine_problem(17, n, 8))
+out["launches"] = {}
+for B, iters in () if K6_ONLY else ((8, 6), (1, 10)):
+    fn = lambda: refine.refine_relative_pose(R0[:B], t0[:B], x1, x2, weights=w0[:B],
+                                             iters=iters)
+    key = f"K10 B {B} x {iters} steps, N {n}"
+    out["digest"][key] = digest(fn())
+    out["ms"][key] = (cuda_ms(fn, reps=5, warmup=1), device_ms(fn, reps=5, warmup=1))
+    out["launches"][key] = timing.profile_launches(fn)
 print(json.dumps(out))
 '''
 
@@ -234,12 +260,13 @@ def main() -> int:
         res["ptxas"] = ptxas[tree] if tree not in trees[:i] else []
         for line in res["ptxas"]:
             print("  ptxas:", line)
-        print(json.dumps({k: res[k] for k in ("card", "blocks_per_sm", "ms", "digest")
+        print(json.dumps({k: res[k] for k in ("card", "blocks_per_sm", "ms", "digest",
+                                              "launches")
                           if k in res} | {"tree": tree}), flush=True)
         results.append(res)
     differ = sorted({k for r in results for k, v in r["digest"].items()
                      if results[0]["digest"].get(k) != v})
-    print(f"output digests (base chain, K3, K4, K5, K6, K8, K9) equal across the trees: "
+    print(f"output digests (base chain, K3, K4, K5, K6, K8, K9, K10) equal across the trees: "
           f"{not differ}{'; differing: ' + ', '.join(differ) if differ else ''}",
           flush=True)
     k9_k4 = all(v == r["digest"][k.replace("K9", "K4", 1)] for r in results

@@ -8,6 +8,8 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_port.py --sequence [--mesh 1]
     python3 profile_port.py --ring
     python3 profile_port.py --cell <workload> --seed <n> [--seconds 51]
+    python3 profile_port.py --watch TREE [TREE ...] [--first SEED] [--seeds 12]
+        [--requests 12] [--rehearse]
 
 Every mode profiles one run with ``torch.profiler`` and gives each
 device operation and each idle gap to the innermost program span
@@ -54,6 +56,22 @@ result line on standard output) and profiles its slice by program span
 as above, per request, with the share of the device operations in each
 of the benchmark's own spans that fall inside a program span's child;
 into ``profile_port_<cell>_<seed>.json`` beside the others.
+
+``--watch TREE [TREE ...]`` is the pair cell's pose watch (ROADMAP
+§1): the pose of ``dino_720x576.pair``, request by request, against its
+float64 reference, for one or more checkouts (``.`` for this one).
+For each of the seeds ``--first`` .. ``--first + --seeds - 1``,
+requests 0 .. ``--requests - 1`` are what a benchmark run with that
+seed sends first (``portbench/entries/two_view_pair.py``: its pool, its
+order and each request's RANSAC draws; a run judges 7 of the first 10).
+Each tree computes their poses in a process of its own (the package has
+one name), after the cell's warm-up; then this process computes each
+request's float64 reference once (``Entry.reference``) and measures
+every tree's rotation and translation-direction angle to it
+(``harness/compare.py``).  Prints, per tree, how many requests read
+over 2e-3 deg in rotation and the largest angles, and writes every
+angle to ``chiprun_out/pose_watch.json``; ``--rehearse`` runs the
+control flow on the CPU at the files' rehearsal sizes.
 """
 
 from __future__ import annotations
@@ -338,7 +356,8 @@ def cell(card, workload, seed, seconds) -> int:
           file=sys.stderr)
     sys.stdout, stdout = sys.stderr, sys.stdout      # the result line stays last
     try:
-        out = report("profiled slice, per request", p.wall_s * 1e3, p, a, p.requests)
+        out = report(f"profiled slice of {p.requests} requests (rows per request)",
+                     p.wall_s * 1e3, p, a, p.requests)
         indices = {r.index for r, _, _ in a.records}
         held = [k >= 0 and a.records[k][0].parent in indices for k in a.op_span]
         cover = {}
@@ -358,12 +377,78 @@ def cell(card, workload, seed, seconds) -> int:
     return 0
 
 
+_WATCH = r'''
+import json, pathlib, sys
+import numpy as np, torch
+sys.path.insert(0, str(pathlib.Path.cwd()))
+from portbench.harness import bench
+spec = bench.load_cell(pathlib.Path.cwd(), sys.argv[1])
+dev = torch.device(sys.argv[2])
+if dev.type == "cpu":   # the control flow at the files' rehearsal sizes
+    from portbench.harness.pipeline import sizes
+    spec["config"], spec["traffic"] = sizes(spec["config"], spec["traffic"], True)
+out = {}
+for seed in map(int, sys.argv[4].split(",")):
+    entry = bench.load_entry(spec, seed, dev)
+    entry.warm()
+    for r in range(int(sys.argv[3])):
+        entry.prepare(r)
+        got = entry.request(r, None, keep=True)
+        out[f"{seed}/{r}"] = {"R": np.asarray(got["R"]).tolist(), "t": np.asarray(got["t"]).tolist()}
+    entry.release()
+print(json.dumps(out))
+'''
+
+
+def watch(trees, first, n_seeds, n_requests, rehearse) -> int:
+    """The pair cell's pose watch (module docstring)."""
+    import subprocess
+
+    import torch
+
+    from portbench.harness import bench, compare as cmp, device as devmod
+    from portbench.harness.pipeline import sizes
+
+    cell_name, watch_deg = "dino_720x576.pair", 2e-3
+    dev = torch.device("cpu") if rehearse else devmod.require_cards(1)
+    seeds = [first + i for i in range(n_seeds)]
+    poses = {}
+    for tree in dict.fromkeys(trees):
+        proc = subprocess.run(
+            [sys.executable, "-c", _WATCH, cell_name, str(dev), str(n_requests),
+             ",".join(map(str, seeds))], cwd=os.path.abspath(tree),
+            capture_output=True, text=True, timeout=3000)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        poses[tree] = json.loads(proc.stdout.strip().splitlines()[-1])
+    spec = bench.load_cell(pathlib.Path(ROOT), cell_name)
+    spec["config"], spec["traffic"] = sizes(spec["config"], spec["traffic"], rehearse)
+    gaps = {tree: {} for tree in poses}
+    for seed in seeds:
+        entry = bench.load_entry(spec, seed, dev)
+        for r in range(n_requests):
+            ref = entry.reference(r)
+            for tree, got in poses.items():
+                g = got[f"{seed}/{r}"]
+                gaps[tree][f"{seed}/{r}"] = (cmp.rotation_gap_deg(g["R"], ref["R"]),
+                                             cmp.direction_gap_deg(g["t"], ref["t"]))
+    card = "cpu (rehearsal)" if rehearse else devmod.card_line()
+    summary = {}
+    for tree, g in gaps.items():
+        rot = [v[0] for v in g.values()]
+        over = sorted(k for k, v in g.items() if v[0] > watch_deg)
+        summary[tree] = {"requests": len(rot), "over_2e-3_deg": len(over), "over": over,
+                         "max_rot_deg": max(rot), "max_t_deg": max(v[1] for v in g.values())}
+        print(json.dumps({"tree": tree, "card": card} | summary[tree]), flush=True)
+    _dump("pose_watch.json", {"card": card, "seeds": seeds, "requests": n_requests,
+                              "summary": summary, "gaps_deg": gaps})
+    return 0
+
+
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        print("profile_port: no CUDA device", file=sys.stderr)
-        return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--tvote-rounds", type=int, default=0)
@@ -377,7 +462,19 @@ def main() -> int:
                     help="one traced run of a benchmark cell, by program span")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--seconds", type=float, default=51)
+    ap.add_argument("--watch", nargs="+", metavar="TREE",
+                    help="the pair cell's pose against its float64 reference, per tree")
+    ap.add_argument("--first", type=int, default=5600000001)
+    ap.add_argument("--seeds", type=int, default=12)
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--rehearse", action="store_true",
+                    help="with --watch: the control flow on the CPU at the rehearsal sizes")
     args = ap.parse_args()
+    if args.watch:
+        return watch(args.watch, args.first, args.seeds, args.requests, args.rehearse)
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     if args.cell:
         return cell(card_line(), args.cell, args.seed, args.seconds)

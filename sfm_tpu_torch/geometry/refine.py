@@ -2,9 +2,20 @@
 ``sfm_tpu/geometry/refine.py``).
 
 The JAX package builds the [N, 5] Jacobian with ``jax.jacfwd`` and
-vmaps the probe starts; here the poses carry a leading batch dimension
-and the five Jacobian columns come from five ``torch.func.jvp`` calls,
-each pushing one unit tangent through every batch member at once.
+vmaps the probe starts; here the poses carry a leading batch dimension.
+
+:func:`refine_relative_pose` sends float32 CUDA inputs to K10
+(``csrc/refine.cu``): the whole loop of every start in one launch, one
+block per start, the five Jacobian columns written out per point, the
+5 x 5 solve and the accept / reject decision inside the block, so the
+loop launches once and never waits on the host.  Everything else (CPU
+tensors, float64) takes :func:`refine_relative_pose_plain`, whose five
+Jacobian columns come from five ``torch.func.jvp`` calls, each pushing
+one unit tangent through every batch member at once; it is also the
+kernel's yardstick.  The two evaluate the same f32 mathematics in
+another order (the kernel's derivatives are the closed forms that
+``jvp`` takes at ``params = 0``), so they agree to f32 rounding while
+the steps' accept / reject decisions agree.
 """
 
 from __future__ import annotations
@@ -13,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from sfm_tpu_torch.ops import _cuda
 from sfm_tpu_torch.ops.linalg import cross_matrix
 from sfm_tpu_torch.geometry import lie
 from sfm_tpu_torch.utils.precision import f32_matmul
@@ -50,14 +62,64 @@ def _unit(v):
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
 
-@f32_matmul
 def refine_relative_pose(R, t, x1, x2, weights=None, *, iters: int = 10,
                          huber_delta: float = 3e-3, damping: float = 1e-8):
     """Refine (R [..., 3, 3], t [..., 3]) against [N, 3] correspondences.
 
     ``weights`` is [..., N] (or [N]); a leading batch dimension on R, t
-    and weights refines several starts independently.
+    and weights refines several starts independently.  K10 for float32
+    CUDA inputs, :func:`refine_relative_pose_plain` for the rest.
     """
+    if x1.is_cuda and x1.dtype == torch.float32:
+        return _refine_kernel(R, t, x1, x2, weights, iters, huber_delta, damping)
+    return refine_relative_pose_plain(R, t, x1, x2, weights, iters=iters,
+                                      huber_delta=huber_delta, damping=damping)
+
+
+def _refine_kernel(R, t, x1, x2, weights, iters, huber_delta, damping):
+    """K10 on the current stream; allocates its outputs, does not wait."""
+    dev = x1.device
+    n = x1.shape[0]
+    batched = R.dim() == 3
+    Rb = (R if batched else R[None]).contiguous()
+    tb = (t if batched else t[None]).contiguous()
+    B = Rb.shape[0]
+    x1c, x2c = x1.contiguous(), x2.contiguous()
+    _cuda.require(Rb, "R", torch.float32, (B, 3, 3), dev)
+    _cuda.require(tb, "t", torch.float32, (B, 3), dev)
+    _cuda.require(x1c, "x1", torch.float32, (n, 3), dev)
+    _cuda.require(x2c, "x2", torch.float32, (n, 3), dev)
+    w, w_stride = None, 0
+    if weights is not None:
+        w = weights.to(torch.float32).contiguous()
+        if w.numel() == n and w.dim() <= 2:   # [N] or [1, N]: one row for every start
+            w = w.reshape(n)
+        else:
+            w_stride = n
+        _cuda.require(w, "weights", torch.float32, (B, n) if w_stride else (n,), dev)
+    out = RefineResult(
+        R=torch.empty((B, 3, 3), dtype=torch.float32, device=dev),
+        t=torch.empty((B, 3), dtype=torch.float32, device=dev),
+        E=torch.empty((B, 3, 3), dtype=torch.float32, device=dev),
+        cost=torch.empty(B, dtype=torch.float32, device=dev),
+        initial_cost=torch.empty(B, dtype=torch.float32, device=dev))
+    if B > 0:
+        code = _cuda.library().lib.sfm_refine_relative_pose(
+            Rb.data_ptr(), tb.data_ptr(), x1c.data_ptr(), x2c.data_ptr(),
+            0 if w is None else w.data_ptr(), w_stride, B, n, max(iters, 0),
+            huber_delta, damping, *(v.data_ptr() for v in out), _cuda.stream_ptr(dev))
+        _cuda.check(code, "refine_relative_pose")
+        _cuda.launched("refine_relative_pose")
+    if not batched:
+        out = RefineResult(*(v[0] for v in out))
+    return out
+
+
+@f32_matmul
+def refine_relative_pose_plain(R, t, x1, x2, weights=None, *, iters: int = 10,
+                               huber_delta: float = 3e-3, damping: float = 1e-8):
+    """:func:`refine_relative_pose` in PyTorch, any device and dtype: the
+    Jacobian by ``torch.func.jvp``, the solve by ``solve_ex``."""
     n = x1.shape[0]
     batched = R.dim() == 3
     if not batched:

@@ -6,13 +6,14 @@ SIFT x2 -> fused top-2 matcher -> compaction to ``geometry_cap`` slots
 translation re-vote rounds -> cheirality vote -> triangulation.
 PyTorch runs eagerly, so the JAX package's two jitted programs become
 plain function calls.  Selections use ``torch.where`` and counts stay
-on the device, but the geometry still blocks on the host about 400
+on the device.  On the card each ``refine.refine_relative_pose`` call
+(the probe, each refine and re-vote round) is one K10 launch that
+waits on nothing, but the geometry still blocks on the host a few dozen
 times a bench pair: each small constant made on the card from a Python
-list (``geometry/lie.tangent_basis`` in every refine and probe step,
-``pose.pose_candidates``, ``ops/linalg.project_to_essential``) and each
-candidate picked by a 0-d index tensor (``pose.recover_pose``, the probe
-start, the bank's best) waits for the card (``utils/timing``'s
-``host_syncs`` counts them).
+list (``pose.pose_candidates``, ``ops/linalg.project_to_essential``)
+and each candidate picked by a 0-d index tensor (``pose.recover_pose``,
+the probe start, the bank's best) waits for the card
+(``utils/timing``'s ``host_syncs`` counts them).
 """
 
 from __future__ import annotations

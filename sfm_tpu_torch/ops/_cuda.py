@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"base_chain": 0, "scale_up": 0, "detect_maps": 0,
             "fused_orient_descriptor": 0, "descriptor_sample": 0,
             "match_top2": 0, "orientation_histogram_sample": 0,
-            "fused_orient_descriptor_win": 0}
+            "fused_orient_descriptor_win": 0, "refine_relative_pose": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +87,11 @@ _SIGNATURES = {
     # split > 1), best, second, index, stream
     "sfm_match_top2": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P),
+    # R0, t0, x1, x2, weights (NULL: all ones), weights' batch stride (0
+    # or n), B, n, iters, huber_delta, damping, R, t, E, cost,
+    # initial cost, stream
+    "sfm_refine_relative_pose": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P,
+                                 _P, _P, _P, _P),
 }
 
 

@@ -229,13 +229,54 @@ def homography_grid_errors(H_est, H_gt, height: int, width: int,
 
 
 def pose_errors_deg(R_est, t_est, R_gt, t_gt):
-    """(rotation angle error, translation direction error) in degrees."""
-    Rd = np.asarray(R_est, np.float64) @ np.asarray(R_gt, np.float64).T
-    rot = np.degrees(np.arccos(np.clip((np.trace(Rd) - 1) / 2, -1.0, 1.0)))
+    """(rotation angle error, translation direction error) in degrees:
+    floats for one pose ([3, 3], [3]), arrays for a batch ([..., 3, 3],
+    [..., 3]).  By atan2, which is exact near 0, where an arccos of the
+    trace reads ~0.03 degrees on equal float32 matrices; a zero-length
+    translation reads 90 degrees."""
+    Rd = np.asarray(R_est, np.float64) @ np.swapaxes(np.asarray(R_gt, np.float64), -1, -2)
+    s = np.stack([Rd[..., 2, 1] - Rd[..., 1, 2], Rd[..., 0, 2] - Rd[..., 2, 0],
+                  Rd[..., 1, 0] - Rd[..., 0, 1]], -1) / 2
+    c = (np.trace(Rd, axis1=-2, axis2=-1) - 1) / 2
+    rot = np.degrees(np.arctan2(np.linalg.norm(s, axis=-1), c))
     a = np.asarray(t_est, np.float64)
     b = np.asarray(t_gt, np.float64)
-    c = a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-12)
-    return float(rot), float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+    tdir = np.where(np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1) > 1e-12,
+                    np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b), axis=-1),
+                                          np.sum(a * b, axis=-1))), 90.0)
+    if rot.ndim == 0 and tdir.ndim == 0:
+        return float(rot), float(tdir)
+    return rot, tdir
+
+
+def refine_problem(seed, n, B):
+    """A two-view scene for the pose refinement: n correspondences in
+    normalized coordinates (a ~110 degree field of view, depths 2-8, a
+    unit baseline), 5e-4 noise on both views, the first 20% of x2
+    replaced by uniform outliers; B starts within ~2 degrees and ~3
+    degrees of translation direction of the truth; inlier masks as
+    RANSAC would hand them over, each missing 5% of the inliers and
+    keeping 5% of the outliers (Huber's linear branch), one shared [n]
+    and one per start [B, n], the latter scaled by uniform(0.5, 1).
+    Returns float32 (R [B, 3, 3], t [B, 3], x1 [n, 3], x2 [n, 3]), the
+    bool [n] mask and the float32 [B, n] weights."""
+    rng = np.random.default_rng(seed)
+    R = _rot([0.1, 1.0, 0.05], 0.2)
+    t = np.array([0.8, 0.1, 0.15]) / np.linalg.norm([0.8, 0.1, 0.15])
+    X = rng.uniform([-3, -2.4, 2.0], [3, 2.4, 8.0], size=(n, 3))
+    x1, x2 = X / X[:, 2:3], (X @ R.T + t) / (X @ R.T + t)[:, 2:3]
+    x1[:, :2] += rng.normal(scale=5e-4, size=(n, 2))
+    x2[:, :2] += rng.normal(scale=5e-4, size=(n, 2))
+    k = int(0.2 * n)
+    x2[:k, :2] = rng.uniform(-1, 1, size=(k, 2))
+    Rs = np.stack([_rot(rng.normal(size=3), 0.03 * rng.random()) @ R for _ in range(B)])
+    ts = t + rng.normal(scale=0.05, size=(B, 3))
+    inlier = np.arange(n) >= k
+    keep = lambda shape: (inlier | (rng.random(shape) < 0.05)) & (rng.random(shape) > 0.05)
+    w_bool = keep(n)
+    w_float = keep((B, n)) * rng.uniform(0.5, 1.0, size=(B, n))
+    f32 = lambda a: np.asarray(a, np.float32)
+    return f32(Rs), f32(ts), f32(x1), f32(x2), w_bool, f32(w_float)
 
 
 def write_pgm(path, img):

@@ -185,6 +185,30 @@ def test_refine_relative_pose_single_and_batched(rng):
     np.testing.assert_allclose(rtb.t.numpy(), np.array(rjb.t), atol=5e-4)
 
 
+def test_refine_relative_pose_on_cpu_takes_the_plain_route(rng, monkeypatch):
+    """CPU tensors, float32 or float64, go to ``refine_relative_pose_plain``
+    (the route the JAX parity test above holds) and never reach the
+    kernel library; K10 is for float32 CUDA tensors alone."""
+    from sfm_tpu_torch.ops import _cuda
+
+    def no_library():
+        raise AssertionError("a CPU call reached the kernel library")
+
+    monkeypatch.setattr(_cuda, "library", no_library)
+    sc = synthetic_two_view(rng, n_points=200, noise=1e-3, n_outliers=20)
+    R0 = (rot([0.3, 1.0, 0.2], 0.03) @ sc["R"]).astype(np.float32)
+    t0 = (sc["t"] + np.array([0.05, -0.04, 0.02])).astype(np.float32)
+    w = T(rng.random(200) > 0.1)
+    before = dict(_cuda.LAUNCHES)
+    for dtype in (torch.float32, torch.float64):
+        args = [T(a).to(dtype) for a in (R0, t0, sc["x1"], sc["x2"])]
+        got = refine.refine_relative_pose(*args, weights=w, iters=4)
+        want = refine.refine_relative_pose_plain(*args, weights=w, iters=4)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a, b)
+    assert _cuda.LAUNCHES == before
+
+
 def test_compaction_order_is_stable_partition(rng):
     valid = rng.random(97) > 0.4
     ot = compact.compaction_order(T(valid)).numpy()

@@ -74,7 +74,8 @@ def test_kernel_argument_checks_reject_cpu_tensors():
                                    "detect_maps", "fused_orient_descriptor",
                                    "descriptor_sample", "match_top2",
                                    "orientation_histogram_sample",
-                                   "fused_orient_descriptor_win"}
+                                   "fused_orient_descriptor_win",
+                                   "refine_relative_pose"}
 
 
 def test_zero_images_give_no_matches_and_finite_pose():
