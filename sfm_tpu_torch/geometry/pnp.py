@@ -19,6 +19,7 @@ import torch
 from sfm_tpu_torch.geometry import lie
 from sfm_tpu_torch.geometry.ransac import sample_minimal_sets
 from sfm_tpu_torch.ops import linalg
+from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul
 
 
@@ -162,7 +163,9 @@ def ransac_pnp(x, X, mask=None, *, generator=None, minimal_sets=None,
     device) and ``minimal_sets`` ([n_hyps, 6] indices, e.g. the JAX
     package's draws in the parity tests) must be given.  ``R_init`` /
     ``t_init`` enter a prior pose (the previous frame's in incremental
-    SfM) compared at a 16x wider gate.
+    SfM) compared at a 16x wider gate.  Spans: ``pnp.bank``
+    (conditioning, draws, the DLT bank, its counts, the prior) and
+    ``pnp.lo`` (the LO rounds).
     """
     if (generator is None) == (minimal_sets is None):
         raise ValueError("ransac_pnp needs exactly one of generator and "
@@ -171,54 +174,56 @@ def ransac_pnp(x, X, mask=None, *, generator=None, minimal_sets=None,
     if mask is None:
         mask = torch.ones((n,), dtype=torch.bool, device=x.device)
 
-    # Condition: center and scale the 3D points (x is already O(1)).
-    w = mask.to(x.dtype)
-    wsum = torch.clamp(w.sum(), min=1.0)
-    c3 = torch.sum(X * w[:, None], dim=0) / wsum
-    scale3 = torch.sum(torch.linalg.vector_norm(X - c3, dim=-1) * w) / wsum
-    scale3 = torch.clamp(scale3, min=1e-3)
-    Xn = (X - c3) / scale3
+    with timing.span("pnp.bank"):
+        # Condition: center and scale the 3D points (x is already O(1)).
+        w = mask.to(x.dtype)
+        wsum = torch.clamp(w.sum(), min=1.0)
+        c3 = torch.sum(X * w[:, None], dim=0) / wsum
+        scale3 = torch.sum(torch.linalg.vector_norm(X - c3, dim=-1) * w) / wsum
+        scale3 = torch.clamp(scale3, min=1e-3)
+        Xn = (X - c3) / scale3
 
-    if minimal_sets is None:
-        idx = sample_minimal_sets(generator, mask, n_hyps, k=6)
-    else:
-        idx = minimal_sets.to(device=x.device, dtype=torch.int64)
-    R_bank, t_bank = pnp_dlt(x[idx], Xn[idx])
+        def strict(R, t, gate=threshold):
+            return torch.sum((reprojection_residuals(R, t, x, Xn) < gate) & mask, dim=-1)
 
-    def strict(R, t, gate=threshold):
-        return torch.sum((reprojection_residuals(R, t, x, Xn) < gate) & mask, dim=-1)
+        if minimal_sets is None:
+            idx = sample_minimal_sets(generator, mask, n_hyps, k=6)
+        else:
+            idx = minimal_sets.to(device=x.device, dtype=torch.int64)
+        R_bank, t_bank = pnp_dlt(x[idx], Xn[idx])
 
-    counts = strict(R_bank, t_bank)
-    best = torch.argmax(counts)
-    R0, t0 = R_bank[best], t_bank[best]
+        counts = strict(R_bank, t_bank)
+        best = torch.argmax(counts)
+        R0, t0 = R_bank[best], t_bank[best]
 
-    if R_init is not None:
-        # The prior wins the LO start where it has more support at a
-        # wide gate than the best minimal-sample hypothesis.
-        t_cond = (R_init @ c3 + t_init) / scale3
-        take = strict(R_init, t_cond, threshold * 16) > strict(R0, t0, threshold * 16)
-        R0 = torch.where(take, R_init, R0)
-        t0 = torch.where(take, t_cond, t0)
+        if R_init is not None:
+            # The prior wins the LO start where it has more support at a
+            # wide gate than the best minimal-sample hypothesis.
+            t_cond = (R_init @ c3 + t_init) / scale3
+            take = strict(R_init, t_cond, threshold * 16) > strict(R0, t0, threshold * 16)
+            R0 = torch.where(take, R_init, R0)
+            t0 = torch.where(take, t_cond, t0)
 
     # LO rounds on annealed gates: GN-polish the incumbent and
     # DLT-refit from scratch on its wide-gate support, keep whichever
     # (or the incumbent) has the most strict inliers.
-    R_best, t_best, c_best = R0, t0, strict(R0, t0)
-    for gate_mult in (16.0, 4.0, 4.0):
-        r_cur = reprojection_residuals(R_best, t_best, x, Xn)
-        wl = ((r_cur < threshold * gate_mult) & mask).to(x.dtype)
-        R1, t1 = refine_pose(R_best, t_best, x, Xn, wl, iters=refine_iters)
-        R2, t2 = pnp_dlt(x, Xn, weights=wl)
-        R2, t2 = refine_pose(R2, t2, x, Xn, wl, iters=refine_iters)
-        c1, c2 = strict(R1, t1), strict(R2, t2)
-        take2 = c2 >= c1
-        R1 = torch.where(take2, R2, R1)
-        t1 = torch.where(take2, t2, t1)
-        c1 = torch.maximum(c1, c2)
-        better = c1 > c_best
-        R_best = torch.where(better, R1, R_best)
-        t_best = torch.where(better, t1, t_best)
-        c_best = torch.where(better, c1, c_best)
+    with timing.span("pnp.lo"):
+        R_best, t_best, c_best = R0, t0, strict(R0, t0)
+        for gate_mult in (16.0, 4.0, 4.0):
+            r_cur = reprojection_residuals(R_best, t_best, x, Xn)
+            wl = ((r_cur < threshold * gate_mult) & mask).to(x.dtype)
+            R1, t1 = refine_pose(R_best, t_best, x, Xn, wl, iters=refine_iters)
+            R2, t2 = pnp_dlt(x, Xn, weights=wl)
+            R2, t2 = refine_pose(R2, t2, x, Xn, wl, iters=refine_iters)
+            c1, c2 = strict(R1, t1), strict(R2, t2)
+            take2 = c2 >= c1
+            R1 = torch.where(take2, R2, R1)
+            t1 = torch.where(take2, t2, t1)
+            c1 = torch.maximum(c1, c2)
+            better = c1 > c_best
+            R_best = torch.where(better, R1, R_best)
+            t_best = torch.where(better, t1, t_best)
+            c_best = torch.where(better, c1, c_best)
 
     inl = (reprojection_residuals(R_best, t_best, x, Xn) < threshold) & mask
     # De-condition: R (X - c3) / s + t projects as R X + (s t - R c3).

@@ -56,7 +56,9 @@ def to_torch(obj, device="cpu"):
         cls = _PORT_TYPES.get(type(obj).__name__)
         if cls is None:
             raise TypeError(f"no port type for {type(obj).__name__}")
-        return cls(**{f: to_torch(getattr(obj, f), device) for f in cls._fields})
+        # A field with a default that the JAX package's type lacks keeps it.
+        return cls(**{f: to_torch(getattr(obj, f), device) for f in cls._fields
+                      if hasattr(obj, f) or f not in cls._field_defaults})
     if isinstance(obj, (tuple, list)):
         return type(obj)(to_torch(o, device) for o in obj)
     a = np.asarray(obj)

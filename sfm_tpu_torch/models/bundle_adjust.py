@@ -24,6 +24,7 @@ import torch
 
 from sfm_tpu_torch.geometry import lie
 from sfm_tpu_torch.geometry.pnp import projection_jacobians, safe_project
+from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul
 
 
@@ -307,6 +308,10 @@ def run_ba(R, t, X, problem: BAProblem, *, iters: int = 20,
     (``parallel.dist_ba.run_dist_ba``): X and the observations are the
     rank's, R and t replicated; the cost and the camera blocks are
     summed over the ranks, so every rank takes the same LM decisions.
+
+    Spans, each iteration: ``ba.system`` (the normal equations or the
+    weighted system), ``ba.solve`` (the Schur solve) and ``ba.step``
+    (apply, cost, accept).
     """
     n_cams, n_pts = R.shape[0], X.shape[0]
     solver = resolve_solver(solver, n_cams, n_pts)
@@ -316,23 +321,28 @@ def run_ba(R, t, X, problem: BAProblem, *, iters: int = 20,
     costs = [cost]
     for _ in range(iters):
         if solver == "dense":
-            U, V, Wg, gc, gp = normal_equation_blocks(
-                R, t, X, problem, huber_delta, n_cams, n_pts)
-            dc, dp = schur_solve(reduce(U), V, Wg, reduce(gc), gp, lam, problem.fixed,
-                                 all_reduce=all_reduce)
+            with timing.span("ba.system"):
+                U, V, Wg, gc, gp = normal_equation_blocks(
+                    R, t, X, problem, huber_delta, n_cams, n_pts)
+            with timing.span("ba.solve"):
+                dc, dp = schur_solve(reduce(U), V, Wg, reduce(gc), gp, lam,
+                                     problem.fixed, all_reduce=all_reduce)
         else:
-            U, V, gc, gp, Jc_w, _, Jp, r, w = weighted_system(
-                R, t, X, problem, huber_delta, n_cams, n_pts)
-            dc, dp = schur_solve_cg(reduce(U), V, Jc_w, Jp, r, w, problem, reduce(gc),
-                                    gp, lam, problem.fixed, cg_iters=cg_iters,
-                                    all_reduce=all_reduce)
-        Rn, tn, Xn = _apply(R, t, X, dc, dp)
-        c_new = reduce(robust_cost(Rn, tn, Xn, problem, huber_delta))
-        ok = c_new < cost
-        R = torch.where(ok, Rn, R)
-        t = torch.where(ok, tn, t)
-        X = torch.where(ok, Xn, X)
-        cost = torch.where(ok, c_new, cost)
-        lam = torch.clamp(torch.where(ok, lam * 0.33, lam * 8.0), 1e-9, 1e6)
-        costs.append(cost)
+            with timing.span("ba.system"):
+                U, V, gc, gp, Jc_w, _, Jp, r, w = weighted_system(
+                    R, t, X, problem, huber_delta, n_cams, n_pts)
+            with timing.span("ba.solve"):
+                dc, dp = schur_solve_cg(reduce(U), V, Jc_w, Jp, r, w, problem,
+                                        reduce(gc), gp, lam, problem.fixed,
+                                        cg_iters=cg_iters, all_reduce=all_reduce)
+        with timing.span("ba.step"):
+            Rn, tn, Xn = _apply(R, t, X, dc, dp)
+            c_new = reduce(robust_cost(Rn, tn, Xn, problem, huber_delta))
+            ok = c_new < cost
+            R = torch.where(ok, Rn, R)
+            t = torch.where(ok, tn, t)
+            X = torch.where(ok, Xn, X)
+            cost = torch.where(ok, c_new, cost)
+            lam = torch.clamp(torch.where(ok, lam * 0.33, lam * 8.0), 1e-9, 1e6)
+            costs.append(cost)
     return BAState(R, t, X, lam, cost), torch.stack(costs)

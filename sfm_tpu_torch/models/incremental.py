@@ -52,6 +52,8 @@ class IncrementalResult(NamedTuple):
     kp_valid: torch.Tensor    # [M, K]
     ba_costs: torch.Tensor
     mean_reproj: torch.Tensor
+    kept: torch.Tensor | None = None   # [M * K] observations the last global BA kept
+    matches: dict | None = None        # (p, i) -> (index [K], valid [K]) of each pair
 
 
 def _empty_state(n_images, kp_capacity, pt_capacity, dtype=torch.float32,
@@ -128,8 +130,9 @@ def _register_image(state: MapState, cur_idx: int, x_cur, prev_idx, x_prev,
     of every previous frame, seeded with the nearest frame's pose; track
     ids propagate to the current image (farther frames first, so the
     nearest wins a slot); fresh tracks are triangulated against the
-    nearest frame.  ``generator`` or ``minimal_sets`` ([n_hyps, 6])
-    feed ``pnp.ransac_pnp``.  Returns (state, number of PnP inliers).
+    nearest frame.  ``generator`` or ``minimal_sets`` ([n_hyps, 6], or
+    a callable that maps the union's row mask to them) feed
+    ``pnp.ransac_pnp``.  Returns (state, number of PnP inliers).
     """
     B, K_slots = match_idx.shape
     p0 = int(prev_idx[0])
@@ -143,6 +146,8 @@ def _register_image(state: MapState, cur_idx: int, x_cur, prev_idx, x_prev,
 
     rc = cfg.ransac
     R_p0, t_p0 = state.R[p0], state.t[p0]
+    if callable(minimal_sets):
+        minimal_sets = minimal_sets(corr_mask.reshape(-1))
     res = pnp.ransac_pnp(
         x_obs.reshape(-1, 3), X_corr.reshape(-1, 3), corr_mask.reshape(-1),
         generator=generator, minimal_sets=minimal_sets, n_hyps=rc.n_hyps,
@@ -150,38 +155,39 @@ def _register_image(state: MapState, cur_idx: int, x_cur, prev_idx, x_prev,
     R_new, t_new = res.R, res.t
     ok_pose = res.num_inliers >= 12
 
-    # Track ids of existing points; farther frames write first.
-    inl = res.inliers.reshape(B, K_slots)
-    point_id_cur = torch.full((K_slots,), -1, dtype=torch.int64, device=x_cur.device)
-    for b in range(B - 1, -1, -1):
-        point_id_cur = _set_last(point_id_cur, match_idx[b], pid_prev[b],
-                                 corr_mask[b] & inl[b])
+    with timing.span("register.tracks"):
+        # Track ids of existing points; farther frames write first.
+        inl = res.inliers.reshape(B, K_slots)
+        point_id_cur = torch.full((K_slots,), -1, dtype=torch.int64, device=x_cur.device)
+        for b in range(B - 1, -1, -1):
+            point_id_cur = _set_last(point_id_cur, match_idx[b], pid_prev[b],
+                                     corr_mask[b] & inl[b])
 
-    # Fresh tracks against the nearest previous frame, gated by
-    # reprojection in both views and positive depth.
-    fresh = match_ok[0] & (pid_prev[0] < 0)
-    X_new, _, finite = tri.triangulate(x_prev[0], x_obs[0],
-                                       tri.make_projection(R_p0, t_p0),
-                                       tri.make_projection(R_new, t_new))
-    gate = rc.threshold * 4
-    good_new = (
-        fresh & finite
-        & (tri.depths(X_new, R_p0, t_p0) > 0) & (tri.depths(X_new, R_new, t_new) > 0)
-        & (pnp.reprojection_residuals(R_p0, t_p0, x_prev[0], X_new) < gate)
-        & (pnp.reprojection_residuals(R_new, t_new, x_obs[0], X_new) < gate)
-        & ok_pose
-    )
-    state, new_ids = _append_points(state, X_new, good_new)
-    point_id_prev0 = torch.where(new_ids >= 0, new_ids, state.point_id[p0])
-    point_id_cur = _set_last(point_id_cur, match_idx[0], new_ids, new_ids >= 0)
+        # Fresh tracks against the nearest previous frame, gated by
+        # reprojection in both views and positive depth.
+        fresh = match_ok[0] & (pid_prev[0] < 0)
+        X_new, _, finite = tri.triangulate(x_prev[0], x_obs[0],
+                                           tri.make_projection(R_p0, t_p0),
+                                           tri.make_projection(R_new, t_new))
+        gate = rc.threshold * 4
+        good_new = (
+            fresh & finite
+            & (tri.depths(X_new, R_p0, t_p0) > 0) & (tri.depths(X_new, R_new, t_new) > 0)
+            & (pnp.reprojection_residuals(R_p0, t_p0, x_prev[0], X_new) < gate)
+            & (pnp.reprojection_residuals(R_new, t_new, x_obs[0], X_new) < gate)
+            & ok_pose
+        )
+        state, new_ids = _append_points(state, X_new, good_new)
+        point_id_prev0 = torch.where(new_ids >= 0, new_ids, state.point_id[p0])
+        point_id_cur = _set_last(point_id_cur, match_idx[0], new_ids, new_ids >= 0)
 
-    eye = torch.eye(3, dtype=R_new.dtype, device=R_new.device)
-    state = _with_rows(
-        state,
-        R=[(cur_idx, torch.where(ok_pose, R_new, eye))],
-        t=[(cur_idx, torch.where(ok_pose, t_new, torch.zeros_like(t_new)))],
-        pose_valid=[(cur_idx, ok_pose)],
-        point_id=[(p0, point_id_prev0), (cur_idx, point_id_cur)])
+        eye = torch.eye(3, dtype=R_new.dtype, device=R_new.device)
+        state = _with_rows(
+            state,
+            R=[(cur_idx, torch.where(ok_pose, R_new, eye))],
+            t=[(cur_idx, torch.where(ok_pose, t_new, torch.zeros_like(t_new)))],
+            pose_valid=[(cur_idx, ok_pose)],
+            point_id=[(p0, point_id_prev0), (cur_idx, point_id_cur)])
     return state, res.num_inliers
 
 
@@ -352,114 +358,130 @@ def run_incremental(images, K, cfg: PipelineConfig = PipelineConfig(), *,
     register (PnP registration), local_ba, closure, global_ba.
     ``minimal_sets`` ({0: [n_hyps, 8] bootstrap sets, i: [n_hyps, 6]
     frame i's PnP sets}) replaces those draws of the one generator
-    seeded with ``seed`` (parity tests).
+    seeded with ``seed`` (parity tests); a value may also be a callable
+    that maps the rows' valid mask (the bootstrap's correspondences,
+    frame i's union of 2D-3D rows) to the sets on the device, called
+    just before that RANSAC (a benchmark's own draws).  The whole run
+    is the span ``incremental.run``.  ``kept`` of the result is the
+    global BA's last observation mask, in ``build_ba_problem``'s order;
+    ``matches`` holds each matched pair's (index, valid), as the
+    registration and the closure read them.
     """
-    n_images = len(images)
-    dev = _resolve_device(images, feats, device, mesh)
-    matcher = _make_matcher(cfg, mesh)
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    K_inv = camera.inv_intrinsics(K)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    sets = minimal_sets or {}
+    with timing.span("incremental.run"):
+        n_images = len(images)
+        dev = _resolve_device(images, feats, device, mesh)
+        matcher = _make_matcher(cfg, mesh)
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        K_inv = camera.inv_intrinsics(K)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        sets = minimal_sets or {}
 
-    def draws(i):
-        ms = sets.get(i)
-        return {"generator": gen} if ms is None else {"minimal_sets": ms}
+        matches = {}
 
-    with timing.span("extract", timer=timer):
-        if feats is None:
-            feats = [frontend.extract_sift(
-                torch.as_tensor(im, dtype=torch.float32, device=dev), cfg.sift)
-                for im in images]
-    kp_cap = feats[0].keypoints.x.shape[0]
-    if pt_capacity is None:
-        pt_capacity = n_images * kp_cap // 4
-    uv_all = torch.stack([torch.stack([f.keypoints.x, f.keypoints.y], dim=-1)
-                          for f in feats])
-    kp_valid = torch.stack([f.keypoints.valid for f in feats])
-    x_norm = [camera.normalize_points(uv_all[i], K_inv) for i in range(n_images)]
-    state = _empty_state(n_images, kp_cap, pt_capacity, device=dev)
+        def draws(i, mask=None):
+            # A callable's sets are drawn on ``mask`` here, or by
+            # ``_register_image`` on its union of rows.
+            ms = sets.get(i)
+            if ms is None:
+                return {"generator": gen}
+            return {"minimal_sets": ms(mask) if callable(ms) and mask is not None else ms}
 
-    def match(p, i):
-        with timing.span("match", timer=timer):
-            m = matcher(feats[p].descriptors, feats[i].descriptors,
-                        feats[p].keypoints.valid, feats[i].keypoints.valid)
-        return m.index, m.valid & kp_valid[p] & kp_valid[i][m.index]
+        with timing.span("extract", timer=timer):
+            if feats is None:
+                feats = [frontend.extract_sift(
+                    torch.as_tensor(im, dtype=torch.float32, device=dev), cfg.sift)
+                    for im in images]
+        kp_cap = feats[0].keypoints.x.shape[0]
+        if pt_capacity is None:
+            pt_capacity = n_images * kp_cap // 4
+        uv_all = torch.stack([torch.stack([f.keypoints.x, f.keypoints.y], dim=-1)
+                              for f in feats])
+        kp_valid = torch.stack([f.keypoints.valid for f in feats])
+        x_norm = [camera.normalize_points(uv_all[i], K_inv) for i in range(n_images)]
+        state = _empty_state(n_images, kp_cap, pt_capacity, device=dev)
 
-    # --- bootstrap from images (0, 1): essential, pose, triangulation ---
-    idx01, mask01 = match(0, 1)
-    with timing.span("bootstrap", timer=timer):
-        rc = cfg.ransac
-        disp2 = torch.sum((uv_all[0] - uv_all[1][idx01]) ** 2, dim=-1)
-        mask01 = mask01 & (disp2 > rc.min_disparity_px ** 2)
-        x1b, x2b = x_norm[0], x_norm[1][idx01]
-        rr = ransac.ransac_essential(
-            x1b, x2b, mask01, n_hyps=rc.n_hyps, threshold=rc.threshold,
-            chunk=rc.chunk, refit_iters=rc.refit_iters, **draws(0))
-        w_inl = rr.inliers.to(x1b.dtype)
-        p = pose_mod.recover_pose(rr.E, x1b, x2b, weights=w_inl)
-        ref = refine.refine_relative_pose(p["R"], p["t"], x1b, x2b,
-                                          weights=rr.inliers, iters=cfg.refine_iters)
-        # Re-vote cheirality on the refined E (as two_view does).
-        p2 = pose_mod.recover_pose(ref.E, x1b, x2b, weights=w_inl)
-        R1, t1 = p2["R"], p2["t"]
-        eye = torch.eye(3, dtype=R1.dtype, device=dev)
-        X01, _, finite01 = tri.triangulate(
-            x1b, x2b, tri.make_projection(eye, torch.zeros_like(t1)),
-            tri.make_projection(R1, t1))
-        good01 = (rr.inliers & finite01 & (X01[:, 2] > 0)
-                  & (tri.depths(X01, R1, t1) > 0))
-        state, ids01 = _append_points(state, X01, good01)
-        pid1 = _set_last(torch.full((kp_cap,), -1, dtype=torch.int64, device=dev),
-                         idx01, ids01, ids01 >= 0)
-        state = _with_rows(state, R=[(1, R1)], t=[(1, t1)],
-                           pose_valid=[(0, True), (1, True)],
-                           point_id=[(0, ids01), (1, pid1)])
+        def match(p, i):
+            with timing.span("match", timer=timer):
+                m = matcher(feats[p].descriptors, feats[i].descriptors,
+                            feats[p].keypoints.valid, feats[i].keypoints.valid)
+            matches[(p, i)] = (m.index, m.valid & kp_valid[p] & kp_valid[i][m.index])
+            return matches[(p, i)]
 
-    # --- incremental registration against n_back previous frames ---
-    for i in range(2, n_images):
-        backs = list(range(i - 1, max(i - 1 - n_back, -1), -1))
-        midx, mok = map(list, zip(*(match(p, i) for p in backs)))
-        # Pad to a fixed B, as the JAX package does for one program.
-        while len(backs) < n_back:
-            backs.append(backs[-1])
-            midx.append(midx[-1])
-            mok.append(torch.zeros_like(mok[-1]))
-        with timing.span("register", timer=timer):
-            state, _ = _register_image(
-                state, i, x_norm[i], backs, torch.stack([x_norm[p] for p in backs]),
-                torch.stack(midx), torch.stack(mok), cfg, **draws(i))
-        if local_ba_iters:
-            with timing.span("local_ba", timer=timer):
-                state = _local_ba(state, i, uv_all, kp_valid, K_inv, local_ba_iters,
-                                  local_ba_window, local_ba_obs_cap, n_back, kp_cap)
+        # --- bootstrap from images (0, 1): essential, pose, triangulation ---
+        idx01, mask01 = match(0, 1)
+        with timing.span("bootstrap", timer=timer):
+            rc = cfg.ransac
+            disp2 = torch.sum((uv_all[0] - uv_all[1][idx01]) ** 2, dim=-1)
+            mask01 = mask01 & (disp2 > rc.min_disparity_px ** 2)
+            x1b, x2b = x_norm[0], x_norm[1][idx01]
+            rr = ransac.ransac_essential(
+                x1b, x2b, mask01, n_hyps=rc.n_hyps, threshold=rc.threshold,
+                chunk=rc.chunk, refit_iters=rc.refit_iters, **draws(0, mask01))
+            w_inl = rr.inliers.to(x1b.dtype)
+            p = pose_mod.recover_pose(rr.E, x1b, x2b, weights=w_inl)
+            ref = refine.refine_relative_pose(p["R"], p["t"], x1b, x2b,
+                                              weights=rr.inliers, iters=cfg.refine_iters)
+            # Re-vote cheirality on the refined E (as two_view does).
+            p2 = pose_mod.recover_pose(ref.E, x1b, x2b, weights=w_inl)
+            R1, t1 = p2["R"], p2["t"]
+            eye = torch.eye(3, dtype=R1.dtype, device=dev)
+            X01, _, finite01 = tri.triangulate(
+                x1b, x2b, tri.make_projection(eye, torch.zeros_like(t1)),
+                tri.make_projection(R1, t1))
+            good01 = (rr.inliers & finite01 & (X01[:, 2] > 0)
+                      & (tri.depths(X01, R1, t1) > 0))
+            state, ids01 = _append_points(state, X01, good01)
+            pid1 = _set_last(torch.full((kp_cap,), -1, dtype=torch.int64, device=dev),
+                             idx01, ids01, ids01 >= 0)
+            state = _with_rows(state, R=[(1, R1)], t=[(1, t1)],
+                               pose_valid=[(0, True), (1, True)],
+                               point_id=[(0, ids01), (1, pid1)])
 
-    with timing.span("local_ba", timer=timer):
-        if local_ba_iters and local_ba_obs_cap != 0:
-            # Points that left every window are refreshed by one
-            # point-only pass (every camera pinned) before the closure
-            # gates and the global BA.
-            problem_p = build_ba_problem(state, uv_all, kp_valid, K_inv)
-            st_p, _ = ba.run_ba(state.R, state.t, state.X,
-                                problem_p._replace(fixed=torch.ones_like(problem_p.fixed)),
-                                iters=3)
-            state = state._replace(X=st_p.X)
+        # --- incremental registration against n_back previous frames ---
+        for i in range(2, n_images):
+            backs = list(range(i - 1, max(i - 1 - n_back, -1), -1))
+            midx, mok = map(list, zip(*(match(p, i) for p in backs)))
+            # Pad to a fixed B, as the JAX package does for one program.
+            while len(backs) < n_back:
+                backs.append(backs[-1])
+                midx.append(midx[-1])
+                mok.append(torch.zeros_like(mok[-1]))
+            with timing.span("register", timer=timer):
+                state, _ = _register_image(
+                    state, i, x_norm[i], backs, torch.stack([x_norm[p] for p in backs]),
+                    torch.stack(midx), torch.stack(mok), cfg, **draws(i))
+            if local_ba_iters:
+                with timing.span("local_ba", timer=timer):
+                    state = _local_ba(state, i, uv_all, kp_valid, K_inv, local_ba_iters,
+                                      local_ba_window, local_ba_obs_cap, n_back, kp_cap)
 
-    # --- loop closure, before the global BA; the gate admits the
-    # drift-scale error the closure corrects ---
-    closure_gate = cfg.ransac.threshold * 4 * closure_gate_mult
-    for ci, cj in closure_pairs:
-        idx, ok = match(ci, cj)
-        with timing.span("closure", timer=timer):
-            state, _ = _apply_closure(state, ci, cj, x_norm[ci], x_norm[cj], idx, ok,
-                                      closure_gate)
+        with timing.span("local_ba", timer=timer):
+            if local_ba_iters and local_ba_obs_cap != 0:
+                # Points that left every window are refreshed by one
+                # point-only pass (every camera pinned) before the closure
+                # gates and the global BA.
+                problem_p = build_ba_problem(state, uv_all, kp_valid, K_inv)
+                st_p, _ = ba.run_ba(state.R, state.t, state.X,
+                                    problem_p._replace(fixed=torch.ones_like(problem_p.fixed)),
+                                    iters=3)
+                state = state._replace(X=st_p.X)
 
-    with timing.span("global_ba", timer=timer):
-        state, costs, mean_reproj = _global_ba(state, uv_all, kp_valid, K_inv,
-                                               ba_iters, mesh)
-    return IncrementalResult(state=state, uv=uv_all, kp_valid=kp_valid,
-                             ba_costs=costs, mean_reproj=mean_reproj)
+        # --- loop closure, before the global BA; the gate admits the
+        # drift-scale error the closure corrects ---
+        closure_gate = cfg.ransac.threshold * 4 * closure_gate_mult
+        for ci, cj in closure_pairs:
+            idx, ok = match(ci, cj)
+            with timing.span("closure", timer=timer):
+                state, _ = _apply_closure(state, ci, cj, x_norm[ci], x_norm[cj], idx, ok,
+                                          closure_gate)
+
+        with timing.span("global_ba", timer=timer):
+            state, costs, mean_reproj, kept = _global_ba(state, uv_all, kp_valid,
+                                                         K_inv, ba_iters, mesh)
+        return IncrementalResult(state=state, uv=uv_all, kp_valid=kp_valid,
+                                 ba_costs=costs, mean_reproj=mean_reproj, kept=kept,
+                                 matches=matches)
 
 
 def _local_ba(state, i, uv_all, kp_valid, K_inv, iters, window, obs_cap, n_back,
@@ -527,31 +549,33 @@ def _global_ba(state, uv_all, kp_valid, K_inv, ba_iters, mesh=None):
     """Global BA, one pruning round (25 x the median squared residual)
     with re-triangulation of the tracks it leaves under two
     observations, and a second global BA; with a mesh, both rounds are
-    ``dist_ba``'s.  Returns (state, costs of both rounds, mean squared
-    residual of the kept observations)."""
+    ``dist_ba``'s.  The pruning and the rescue are the span
+    ``global_ba.prune``.  Returns (state, costs of both rounds, mean
+    squared residual of the kept observations, the kept mask)."""
     problem = build_ba_problem(state, uv_all, kp_valid, K_inv)
     run = _ba_rounds(problem, state.X, mesh)
     R_f, t_f, X_f, costs = run(state.R, state.t, state.X, problem.mask, ba_iters)
-    r = ba._residuals(R_f, t_f, X_f, problem)
-    rn2 = torch.sum(r * r, dim=-1)
-    med = _median(rn2, problem.mask)
-    gate = 25.0 * torch.nan_to_num(med, nan=1e-6) + 1e-12
-    keep = problem.mask & (rn2 < gate)
-    # Re-triangulate tracks pruned to < 2 observations with the refined
-    # poses: a bad initial triangulation, not bad matches, usually
-    # failed them.
-    pcap = X_f.shape[0]
-    X_rt, ok_rt = tri.triangulate_tracks(R_f, t_f, problem.cam_idx, problem.pt_idx,
-                                         problem.uv, problem.mask, pcap)
-    rn2_rt = torch.sum(ba._residuals(R_f, t_f, X_rt, problem) ** 2, dim=-1)
-    keep_rt = problem.mask & (rn2_rt < gate)
-    zeros = torch.zeros((pcap,), dtype=torch.int64, device=X_f.device)
-    kept_cnt = zeros.index_add(0, problem.pt_idx, keep.to(torch.int64))
-    rt_cnt = zeros.index_add(0, problem.pt_idx, keep_rt.to(torch.int64))
-    accept = ok_rt & (kept_cnt < 2) & (rt_cnt >= 2)
-    X_f = torch.where(accept[:, None], X_rt, X_f)
-    # A rescued point keeps only the observations that pass against X_rt.
-    keep = torch.where(accept[problem.pt_idx], keep_rt, keep)
+    with timing.span("global_ba.prune"):
+        r = ba._residuals(R_f, t_f, X_f, problem)
+        rn2 = torch.sum(r * r, dim=-1)
+        med = _median(rn2, problem.mask)
+        gate = 25.0 * torch.nan_to_num(med, nan=1e-6) + 1e-12
+        keep = problem.mask & (rn2 < gate)
+        # Re-triangulate tracks pruned to < 2 observations with the refined
+        # poses: a bad initial triangulation, not bad matches, usually
+        # failed them.
+        pcap = X_f.shape[0]
+        X_rt, ok_rt = tri.triangulate_tracks(R_f, t_f, problem.cam_idx, problem.pt_idx,
+                                             problem.uv, problem.mask, pcap)
+        rn2_rt = torch.sum(ba._residuals(R_f, t_f, X_rt, problem) ** 2, dim=-1)
+        keep_rt = problem.mask & (rn2_rt < gate)
+        zeros = torch.zeros((pcap,), dtype=torch.int64, device=X_f.device)
+        kept_cnt = zeros.index_add(0, problem.pt_idx, keep.to(torch.int64))
+        rt_cnt = zeros.index_add(0, problem.pt_idx, keep_rt.to(torch.int64))
+        accept = ok_rt & (kept_cnt < 2) & (rt_cnt >= 2)
+        X_f = torch.where(accept[:, None], X_rt, X_f)
+        # A rescued point keeps only the observations that pass against X_rt.
+        keep = torch.where(accept[problem.pt_idx], keep_rt, keep)
     problem2 = problem._replace(mask=keep)
     R_f, t_f, X_f, costs2 = run(R_f, t_f, X_f, keep, max(ba_iters // 2, 5))
     state = state._replace(R=R_f, t=t_f, X=X_f)
@@ -559,4 +583,4 @@ def _global_ba(state, uv_all, kp_valid, K_inv, ba_iters, mesh=None):
     denom = torch.clamp(problem2.mask.sum(), min=1)
     mean_reproj = torch.sum(torch.where(problem2.mask, torch.sum(r * r, -1),
                                         torch.zeros_like(rn2))) / denom
-    return state, torch.cat([costs, costs2]), mean_reproj
+    return state, torch.cat([costs, costs2]), mean_reproj, problem2.mask

@@ -6,7 +6,9 @@ Off, a span is the shared null context: no record, no synchronize, no
 profiler range, no tensor.  On, records nest by ``parent`` and
 ``request``, the ring keeps its newest, and the counters' deltas land
 in the span that saw them.  The geometry's and the frontend's spans
-open in their order and leave the results bit for bit as they are.
+open in their order and leave the results bit for bit as they are, and
+so do ``run_incremental``'s, under its stages, whose ``timer=`` keys
+stay as they were.
 Under ``torch.profiler`` each record lies within 100 us inside its
 profiler range (the same clock), and the first call of each name is
 recorded once.
@@ -23,7 +25,7 @@ from synthetic_pair import synthetic_pair
 from portbench.harness import program_spans
 from portbench.harness.trace import Profile
 from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
-from sfm_tpu_torch.models import two_view
+from sfm_tpu_torch.models import incremental, two_view
 from sfm_tpu_torch.ops import _cuda
 from sfm_tpu_torch.sift import frontend
 from sfm_tpu_torch.utils import timing
@@ -37,6 +39,8 @@ GEOMETRY = ["geometry.bank", "geometry.score", "geometry.refit", "geometry.multi
             "geometry.final"]
 SIFT = ["sift.chain", "sift.detect", "sift.select", "sift.atlas", "sift.sample",
         "sift.describe"]
+STAGES = {"extract", "match", "bootstrap", "register", "local_ba", "closure", "global_ba"}
+LM = ["ba.system", "ba.solve", "ba.step"]
 
 
 @pytest.fixture(autouse=True)
@@ -249,6 +253,50 @@ def test_records_lie_inside_their_profiler_ranges(pair):
         for (t0, t1), (s, e) in zip(mine, theirs):
             assert 0 <= t0 - s <= 100_000, (name, t0 - s)
             assert 0 <= e - t1 <= 100_000, (name, e - t1)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    from synthetic_sequence import synthetic_sequence
+
+    seq = synthetic_sequence(144, 176, n_frames=4)
+    return [torch.as_tensor(im) for im in seq["images"]], seq["K"]
+
+
+def _sequence(frames, timer=None):
+    images, K = frames
+    return incremental.run_incremental(images, K, CFG, seed=2, ba_iters=2, local_ba_iters=1,
+                                       closure_pairs=[(0, 3)], device="cpu", timer=timer)
+
+
+def test_incremental_spans_nest_under_their_stages(frames):
+    off = _sequence(frames)
+    assert timing.records() == []
+    timing.enable()
+    on = _sequence(frames)
+    timing.disable()
+    recs = timing.records()
+    (top,) = [r for r in recs if r.parent == -1]
+    assert top.name == "incremental.run"
+    assert set(_children(recs, top.index)) == STAGES
+
+    def children(name):
+        return [_children(recs, r.index) for r in recs if r.name == name]
+
+    assert children("register") == [["pnp.bank", "pnp.lo", "register.tracks"]] * 2
+    # One LM step after each of frames 2 and 3, then the 3 point-only steps.
+    assert children("local_ba") == [LM, LM, LM * 3]
+    assert children("global_ba") == [LM * 2 + ["global_ba.prune"] + LM * 5]
+    for a, b in zip([*off.state, off.ba_costs, off.mean_reproj, off.kept],
+                    [*on.state, on.ba_costs, on.mean_reproj, on.kept]):
+        assert torch.equal(a, b)
+
+
+def test_incremental_stage_times_keep_their_keys(frames):
+    timer = timing.StageTimer()
+    _sequence(frames, timer)
+    assert set(timer.summary()) == STAGES
+    assert timing.records() == []
 
 
 def _rec(index, name, parent, t0, t1, syncs=0, launches=0):
