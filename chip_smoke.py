@@ -81,7 +81,11 @@ Phases, each of which fails the run on any error:
    map), (b) ``run_incremental`` on the float frames with the closure
    pair (0, 11), each gated against the JAX package's run on the same
    frames (poses registered, points, px, and ATE and rotation errors
-   against the rendered poses); ms per registered frame by stage; then
+   against the rendered poses); ms per registered frame by stage; K11
+   (``pnp_lo``) on the LO inputs of (b)'s last registered frame against
+   the plain route in float32 and float64 (as ``tests/test_torch_cuda.py``
+   holds it), with K11's device ms, the plain route's host and device
+   ms and launches, and a digest of K11's outputs; then
    ``run_ba``'s dense LU and CG on (b)'s global BA problem, with camera
    0 fixed and with none fixed, and on a free 36-camera ring, against
    a float64 CPU solve (final cost, gap, ms per LM iteration; the
@@ -151,12 +155,13 @@ Each of the main paths (phases 4 to 12) runs with every launch count set
 to 0 just before it and read just after; each must launch every kernel
 it goes through, the base chain exactly once per image and K3 once per
 image and 8 octaves it extracts, K6 once per matched pair on the
-sequence, K10 three times a bench pair, and together they launch all nine
-(K1 and K2 are one kernel).  The last lines of
+sequence, K10 three times a bench pair, K11 once per frame registered by
+PnP, and together they launch every kernel (K1 and K2 are one kernel).  The last lines of
 standard output are the kernels' JSON record (each kernel's
 ``launches`` summed over those paths, its ``max_abs_err`` the largest
 of phases 3, 5, 6 and 12, its times and bound phase 3's, or phase 5's
-for K7, phase 6's for K8 and phase 4's for K10; K3's gated mode under ``gated``, at both
+for K7, phase 6's for K8, phase 4's for K10 and phase 9's for K11; K3's
+gated mode under ``gated``, at both
 shapes; K6's f32 mode under ``f32`` and K8 and K5 at the XLA route's
 shapes under ``xla_route``, from phase 12),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -326,7 +331,7 @@ PEAK_OPS = 32 * 11
 # Where each kernel's time and bound are taken: the bench path's shapes,
 # unless the bench path does not launch it.
 TIMED_AT = {"scale_up": "upscale", "orientation_histogram_sample": "module_api",
-            "refine_relative_pose": "pair_geometry"}
+            "refine_relative_pose": "pair_geometry", "pnp_lo": "registration"}
 
 # Operations per correspondence of one K10 step, counted from
 # csrc/refine.cu as the sampling kernels' above: the normal pass 300
@@ -335,6 +340,23 @@ TIMED_AT = {"scale_up": "upscale", "orientation_histogram_sample": "module_api",
 # sums 45), the trial pass's cost 47; one more cost pass at the start.
 REFINE_STEP_OPS = 347
 REFINE_START_OPS = 47
+
+# Operations per row of K11's passes, counted from csrc/pnp_lo.cu the
+# same way: a Gauss-Newton pass 203 (the camera-frame point 18, its
+# guarded projection and residual 10, the Huber cost and weight 8, the
+# Jacobian 47, the 21 + 6 sums 120), a Gram pass 132 (the scaled rows
+# 12, 4 x 10 sums 120), a count pass 56 (two poses), the final mask 28;
+# per round two chains of 1 + iters passes, one Gram and one count.
+LO_NORMAL_OPS = 203
+LO_GRAM_OPS = 132
+LO_COUNT_OPS = 56
+LO_FINAL_OPS = 28
+
+
+def lo_ops(n: int, iters: int, rounds: int = 3) -> int:
+    """Operations of one K11 call on n rows."""
+    return n * (rounds * ((2 * iters + 2) * LO_NORMAL_OPS + LO_GRAM_OPS + LO_COUNT_OPS)
+                + LO_FINAL_OPS)
 
 
 def k3_launches(images: int, octaves: int = 5) -> int:
@@ -383,6 +405,11 @@ PATH_K3 = {"bench": k3_launches(16), "upscale": k3_launches(2),
 # K10 launches on the bench path: the probe and two refine rounds a pair
 # (bench.py's config: tvote_rounds 0), 8 seeds.
 PATH_K10 = {"bench": 3 * 8}
+# K11 launches: one per frame registered by PnP (every frame after the
+# first two) in each run_incremental: the sequence's CLI run and its
+# run with a closure, reconstruct_dino's run on the ring, the mesh's CLI run.
+PATH_K11 = {"sequence": 2 * (SEQ_FRAMES - 2), "ring": RING_FRAMES - 2,
+            "distributed": SEQ_FRAMES - 2}
 PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
            + sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES)),
            "ring": sequence_matches(RING_FRAMES) + RING_PAIRS,
@@ -398,9 +425,10 @@ PATH_KERNELS = {
     "upscale_lowest": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2",
                     "refine_relative_pose"},
-    "sequence": _BASE | {"fused_orient_descriptor", "match_top2", "refine_relative_pose"},
-    "ring": _BASE | {"fused_orient_descriptor", "match_top2"},
-    "distributed": _BASE | {"fused_orient_descriptor", "match_top2"},
+    "sequence": _BASE | {"fused_orient_descriptor", "match_top2", "refine_relative_pose",
+                         "pnp_lo"},
+    "ring": _BASE | {"fused_orient_descriptor", "match_top2", "pnp_lo"},
+    "distributed": _BASE | {"fused_orient_descriptor", "match_top2", "pnp_lo"},
 }
 
 
@@ -559,6 +587,8 @@ KERNEL_SOURCES = {
                                     "sfm_tpu/ops/pallas_sample.py:998"),
     "refine_relative_pose": ("sfm_tpu_torch/csrc/refine.cu",
                              "none: sfm_tpu/geometry/refine.py runs jax.jacfwd under XLA"),
+    "pnp_lo": ("sfm_tpu_torch/csrc/pnp_lo.cu",
+               "none: the LO stage of sfm_tpu/geometry/pnp.py:ransac_pnp runs under XLA"),
 }
 
 
@@ -583,6 +613,10 @@ def check_path_launches(path, launches, gates):
         gates.check(launches["refine_relative_pose"] == PATH_K10[path],
                     f"K10 launched {launches['refine_relative_pose']} times on the "
                     f"{path} path, not {PATH_K10[path]}")
+    if path in PATH_K11:
+        gates.check(launches["pnp_lo"] == PATH_K11[path],
+                    f"K11 launched {launches['pnp_lo']} times on the {path} path, "
+                    f"not {PATH_K11[path]}")
 
 
 def _conv(taps, stride, dev):
@@ -1199,6 +1233,70 @@ def hold_refine(pair, cfg, gates, dev):
     return {"refine_relative_pose": rec}
 
 
+def hold_pnp_lo(call, gates, where):
+    """K11 on one registered frame's own LO inputs (``call``: the args,
+    kwargs and result of its ``pnp.pnp_lo`` call in ``run_incremental``)
+    against the plain route in float32 and float64, as
+    ``tests/test_torch_cuda.py`` holds it (K11's rotation error to
+    float64 within the plain f32 route's own plus 1e-4 deg, its
+    translation's relative error within the plain route's plus 5e-6,
+    the strict counts within a row or 0.1%: on a real frame a row may
+    sit at the threshold); K11's CUDA-event and device ms, the plain
+    route's host ms (a synchronized call on the host clock), its device
+    ms and launches (a profile), and a digest of K11's outputs."""
+    import hashlib
+    import torch
+
+    from synthetic_pair import pose_errors_deg
+    from sfm_tpu_torch.geometry import pnp
+
+    args, kwargs, first, _ = call
+    x, Xn, mask, R0, t0 = args
+    k_fn = lambda: pnp.pnp_lo(*args, **kwargs)
+    p_fn = lambda: pnp.pnp_lo_plain(*args, **kwargs)
+    k, p = k_fn(), p_fn()
+    p64 = pnp.pnp_lo_plain(x.double(), Xn.double(), mask, R0.double(), t0.double(), **kwargs)
+    gates.check(all(torch.equal(a, b) for a, b in zip(k, first)),
+                f"K11 {where}: a second call differs from the frame's own")
+    host = lambda r: (r[0].cpu().numpy(), r[1].cpu().numpy())
+    rot_k, _ = pose_errors_deg(*host(k), *host(p64))
+    rot_p, _ = pose_errors_deg(*host(p), *host(p64))
+    t_err = lambda r: float((r[1].double() - p64[1]).norm() / p64[1].norm())
+    counts = tuple(int(r[3]) for r in (k, p, p64))
+    err = {"rot_deg": (float(rot_k), float(rot_p)), "t_rel": (t_err(k), t_err(p)),
+           "counts": counts}
+    gates.check(rot_k <= rot_p + 1e-4, f"K11 {where}: rotation to float64 {rot_k} past the "
+                f"plain route's {rot_p} + 1e-4 deg")
+    gates.check(t_err(k) <= t_err(p) + 5e-6, f"K11 {where}: translation to float64 "
+                f"{t_err(k)} past the plain route's {t_err(p)} + 5e-6")
+    gates.check(abs(counts[0] - counts[1]) <= max(1, counts[1] // 1000),
+                f"K11 {where}: strict counts (K11, plain f32, float64) {counts}")
+    t_host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p_fn()
+        torch.cuda.synchronize()
+        t_host.append((time.perf_counter() - t1) * 1e3)
+    plain_launches, plain_dev = profile_launches(p_fn)
+    n, iters = x.shape[0], kwargs["refine_iters"]
+    shapes = f"N {n} ({int(mask.sum())} live), 3 rounds x 2 chains x {iters} steps"
+    rec = kernel_record(
+        "pnp_lo", max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max())),
+        k_fn, p_fn, shapes, n * (24 + 1 + 1) + 4 * (9 + 3 + 9 + 3 + 1), lo_ops(n, iters),
+        plain_reps=3)
+    rec.update(errors_vs_float64=err, plain_host_ms=sorted(t_host)[1],
+               plain_device_ms=plain_dev, plain_launches=plain_launches,
+               digest=hashlib.sha256(b"".join(v.cpu().numpy().tobytes() for v in k)
+                                     ).hexdigest()[:16])
+    log(f"K11 {where} ({shapes}): {rec['device_ms']:.4f} device ms, {rec['ms']:.4f} ms; "
+        f"plain route {rec['plain_host_ms']:.1f} host ms, {plain_dev:.3f} device ms in "
+        f"{plain_launches} launches; bound {rec['bound_ms'] * 1e3:.3f} us "
+        f"({rec['bound_by']}); errors to float64 (K11, plain f32) {err}; digest "
+        f"{rec['digest']}")
+    return rec
+
+
 class HFit(NamedTuple):
     H: "torch.Tensor"        # [3, 3], H[2, 2] = 1
     uv1: "torch.Tensor"      # [N, 2] keypoints of image 1
@@ -1754,6 +1852,7 @@ def sequence_phase(gates, dev, card):
 
     from sfm_tpu_torch import cli
     from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu_torch.geometry import pnp
     from sfm_tpu_torch.models import incremental
     from sfm_tpu_torch.ops import _cuda
     from sfm_tpu_torch.utils.checkpoint import load_map
@@ -1807,7 +1906,7 @@ def sequence_phase(gates, dev, card):
                          ransac=RansacConfig(n_hyps=1024, threshold=3e-6))
     imgs = [torch.as_tensor(im, device=dev) for im in seq["images"]]
     timer = StageTimer()
-    with spy(incremental, "_global_ba") as gcalls:
+    with spy(incremental, "_global_ba") as gcalls, spy(pnp, "pnp_lo") as lo_calls:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = incremental.run_incremental(imgs, seq["K"], cfg, seed=0, ba_iters=20,
@@ -1843,12 +1942,14 @@ def sequence_phase(gates, dev, card):
                 f"sequence cli: K6 launched {k6_a} times")
     check_path_launches("sequence", launches, gates)
 
-    # The BA solver A/B on (b)'s global problem, after the counts were read.
+    # K11 on the last registered frame's LO inputs, then the BA solver
+    # A/B on (b)'s global problem, after the counts were read.
+    k11 = hold_pnp_lo(lo_calls[-1], gates, f"frame {SEQ_FRAMES - 1}")
     g_args = gcalls[0][0]
     ab = ba_solver_ab(*g_args[:4], iters=20, dev=dev)
     log_solver_ab(ab, gates, card)
-    return {"cli": a, "module": b, "ba_solver_ab": ab,
-            "launches_cli": launches_a}, launches
+    return {"cli": a, "module": b, "ba_solver_ab": ab, "launches_cli": launches_a,
+            "pnp_lo": k11}, launches
 
 
 def log_solver_ab(ab, gates, card):
@@ -2796,6 +2897,7 @@ def main() -> int:
     launches["upscale_window"] = win["launches"]
     cli_res, launches["cli"] = cli_phase(pair, rpair, gates, dev, card)
     seq_res, launches["sequence"] = sequence_phase(gates, dev, card)
+    held["registration"] = {"pnp_lo": seq_res.pop("pnp_lo")}
     ring_res, launches["ring"] = ring_phase(gates, dev, card)
     dist_res, launches["distributed"] = distributed_phase(seq_res, gates, dev, card)
     xla_res, launches["xla_route"], held_x = xla_phase(pair, rpair, up, gates, dev, card)

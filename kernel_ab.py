@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """A/B times of the port's base chain (K1 + K2), K3 (detection maps),
-K4, K5, K8 and K9 (keypoint sampling), K6 (matcher) and K10 (pose
-refinement) kernels for two or more checkouts of the repository, on
-one card.
+K4, K5, K8 and K9 (keypoint sampling), K6 (matcher), K10 (pose
+refinement) and K11 (PnP's LO stage) kernels for two or more checkouts
+of the repository, on one card.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -43,7 +43,13 @@ device milliseconds alone (the calls queued behind a spin kernel) of
 - K10 (``refine_relative_pose``, however the tree runs it: the plain
   ``jvp`` route before K10) at the bench pair's shapes, 8 starts x 6
   steps and 1 x 10 at 2,560 seeded correspondences, also profiled
-  (device operations and their device ms; ``launches`` in the record),
+  (device operations and their device ms; ``launches`` in the record);
+- ``ransac_pnp`` whole, however the tree runs its LO stage (the plain
+  route inside it before K11), and K11 (``pnp_lo``) alone where the
+  tree has it, on its own LO inputs there, at the sequence cell's shape:
+  15,360 rows (3 frames x 5,120 slots), 40% of them live, 1,024
+  hypotheses, the prior winning (``tests/synthetic_pair.py:pnp_problem``),
+  also profiled,
 
 with a digest (SHA-256) of each kernel's outputs there, so that one
 call shows whether the trees' outputs are equal bit for bit as well as
@@ -71,7 +77,8 @@ keep, lines = False, []
 for line in _cuda.library().build_log.splitlines():
     if "Compiling entry function" in line:
         keep = any(k in line for k in ("detect", "match", "fused", "descriptor",
-                                       "orientation", "chain", "blur", "decim", "refine"))
+                                       "orientation", "chain", "blur", "decim", "refine",
+                                       "pnp_lo"))
     if (keep and ("entry" in line or "registers" in line or "spill" in line)
             or "Performance Loss" in line):
         lines.append(line.strip())
@@ -220,6 +227,29 @@ for B, iters in () if K6_ONLY else ((8, 6), (1, 10)):
     out["digest"][key] = digest(fn())
     out["ms"][key] = (cuda_ms(fn, reps=5, warmup=1), device_ms(fn, reps=5, warmup=1))
     out["launches"][key] = timing.profile_launches(fn)
+# ransac_pnp at the sequence cell's shape, however the tree runs its LO
+# stage, and K11 (pnp_lo) alone on the LO inputs it hands over where the
+# tree has it: the tests' seeded registration (pnp_problem, of this
+# checkout), 15,360 rows, 40% live, 1,024 hypotheses, the prior winning.
+from sfm_tpu_torch.geometry import pnp
+n = 15360
+x, X, Ri, ti, mask, sets = (torch.as_tensor(a, device=dev)
+                            for a in scene.pnp_problem(19, n, 0.4, True, n_hyps=1024))
+ransac = lambda: pnp.ransac_pnp(x, X, mask, minimal_sets=sets, n_hyps=1024, threshold=1.2e-5,
+                                R_init=Ri, t_init=ti)
+lo_calls = []
+if not K6_ONLY and hasattr(pnp, "pnp_lo"):
+    lo = pnp.pnp_lo
+    pnp.pnp_lo = lambda *a, **k: (lo_calls.append((a, k)), lo(*a, **k))[1]
+    ransac()
+    pnp.pnp_lo = lo
+for key, fn in () if K6_ONLY else (
+        (f"ransac_pnp N {n}, {int(mask.sum())} live, 1024 hypotheses", ransac),
+        *((f"K11 N {n}, {int(mask.sum())} live", lambda: pnp.pnp_lo(*a, **k))
+          for a, k in lo_calls[:1])):
+    out["digest"][key] = digest(fn())
+    out["ms"][key] = (cuda_ms(fn, reps=5, warmup=1), device_ms(fn, reps=5, warmup=1))
+    out["launches"][key] = timing.profile_launches(fn)
 print(json.dumps(out))
 '''
 
@@ -266,7 +296,8 @@ def main() -> int:
         results.append(res)
     differ = sorted({k for r in results for k, v in r["digest"].items()
                      if results[0]["digest"].get(k) != v})
-    print(f"output digests (base chain, K3, K4, K5, K6, K8, K9, K10) equal across the trees: "
+    print(f"output digests (base chain, K3, K4, K5, K6, K8, K9, K10, ransac_pnp, K11) equal "
+          f"across the trees: "
           f"{not differ}{'; differing: ' + ', '.join(differ) if differ else ''}",
           flush=True)
     k9_k4 = all(v == r["digest"][k.replace("K9", "K4", 1)] for r in results

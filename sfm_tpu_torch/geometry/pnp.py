@@ -8,17 +8,27 @@ rounds.  The JAX package differentiates the residuals with ``jacfwd``;
 here the Jacobians are written out (``projection_jacobians``), one
 batched expression instead of six JVPs.  Accept/reject is
 ``torch.where`` throughout: no value leaves the device.
+
+:func:`pnp_lo` sends float32 CUDA inputs to K11 (``csrc/pnp_lo.cu``):
+the three LO rounds (two ``refine_pose`` chains and a weighted
+``pnp_dlt`` refit each, the counts, the keep rules) and the final
+strict inlier mask in one launch, with the same mathematics in f32 and
+no value read back.  Everything else (CPU tensors, float64) takes
+:func:`pnp_lo_plain`, which is also the kernel's yardstick; the two sum
+in other orders, so they agree to f32 rounding while their accept,
+keep and count decisions agree.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from sfm_tpu_torch.geometry import lie
 from sfm_tpu_torch.geometry.ransac import sample_minimal_sets
-from sfm_tpu_torch.ops import linalg
+from sfm_tpu_torch.ops import _cuda, linalg
 from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul
 
@@ -106,6 +116,12 @@ def reprojection_residuals(R, t, x, X):
     return torch.where(z > 0, d, torch.full_like(d, 1e6))
 
 
+def strict_count(R, t, x, X, mask, gate):
+    """Rows of ``mask`` whose squared reprojection error at (R, t) is
+    under ``gate`` (R, t may carry a batch)."""
+    return torch.sum((reprojection_residuals(R, t, x, X) < gate) & mask, dim=-1)
+
+
 @f32_matmul
 def refine_pose(R, t, x, X, weights=None, *, iters: int = 8,
                 huber_delta: float = 3e-3):
@@ -165,7 +181,7 @@ def ransac_pnp(x, X, mask=None, *, generator=None, minimal_sets=None,
     ``t_init`` enter a prior pose (the previous frame's in incremental
     SfM) compared at a 16x wider gate.  Spans: ``pnp.bank``
     (conditioning, draws, the DLT bank, its counts, the prior) and
-    ``pnp.lo`` (the LO rounds).
+    ``pnp.lo`` (:func:`pnp_lo`: the LO rounds and the inlier mask).
     """
     if (generator is None) == (minimal_sets is None):
         raise ValueError("ransac_pnp needs exactly one of generator and "
@@ -184,7 +200,7 @@ def ransac_pnp(x, X, mask=None, *, generator=None, minimal_sets=None,
         Xn = (X - c3) / scale3
 
         def strict(R, t, gate=threshold):
-            return torch.sum((reprojection_residuals(R, t, x, Xn) < gate) & mask, dim=-1)
+            return strict_count(R, t, x, Xn, mask, gate)
 
         if minimal_sets is None:
             idx = sample_minimal_sets(generator, mask, n_hyps, k=6)
@@ -204,29 +220,81 @@ def ransac_pnp(x, X, mask=None, *, generator=None, minimal_sets=None,
             R0 = torch.where(take, R_init, R0)
             t0 = torch.where(take, t_cond, t0)
 
-    # LO rounds on annealed gates: GN-polish the incumbent and
-    # DLT-refit from scratch on its wide-gate support, keep whichever
-    # (or the incumbent) has the most strict inliers.
     with timing.span("pnp.lo"):
-        R_best, t_best, c_best = R0, t0, strict(R0, t0)
-        for gate_mult in (16.0, 4.0, 4.0):
-            r_cur = reprojection_residuals(R_best, t_best, x, Xn)
-            wl = ((r_cur < threshold * gate_mult) & mask).to(x.dtype)
-            R1, t1 = refine_pose(R_best, t_best, x, Xn, wl, iters=refine_iters)
-            R2, t2 = pnp_dlt(x, Xn, weights=wl)
-            R2, t2 = refine_pose(R2, t2, x, Xn, wl, iters=refine_iters)
-            c1, c2 = strict(R1, t1), strict(R2, t2)
-            take2 = c2 >= c1
-            R1 = torch.where(take2, R2, R1)
-            t1 = torch.where(take2, t2, t1)
-            c1 = torch.maximum(c1, c2)
-            better = c1 > c_best
-            R_best = torch.where(better, R1, R_best)
-            t_best = torch.where(better, t1, t_best)
-            c_best = torch.where(better, c1, c_best)
-
-    inl = (reprojection_residuals(R_best, t_best, x, Xn) < threshold) & mask
+        R_best, t_best, inl, num = pnp_lo(x, Xn, mask, R0, t0, threshold=threshold,
+                                          refine_iters=refine_iters)
     # De-condition: R (X - c3) / s + t projects as R X + (s t - R c3).
     t_world = scale3 * t_best - R_best @ c3
-    return PnPResult(R=R_best, t=t_world, inliers=inl,
-                     num_inliers=inl.sum().to(torch.int32))
+    return PnPResult(R=R_best, t=t_world, inliers=inl, num_inliers=num)
+
+
+# The LO rounds' gates, as multiples of the strict threshold.
+LO_GATES = (16.0, 4.0, 4.0)
+
+
+def pnp_lo(x, Xn, mask, R0, t0, *, threshold: float, refine_iters: int = 8):
+    """``ransac_pnp``'s LO stage from the start (R0, t0) on [N, 3]
+    observations ``x``, conditioned points ``Xn`` and the [N] bool
+    ``mask``: returns (R, t) in the conditioned frame, the strict
+    inlier mask [N] and its count (int32).  K11 for float32 CUDA
+    inputs, :func:`pnp_lo_plain` for the rest."""
+    if x.is_cuda and x.dtype == torch.float32:
+        return _pnp_lo_kernel(x, Xn, mask, R0, t0, threshold, refine_iters)
+    return pnp_lo_plain(x, Xn, mask, R0, t0, threshold=threshold,
+                        refine_iters=refine_iters)
+
+
+def _pnp_lo_kernel(x, Xn, mask, R0, t0, threshold, refine_iters):
+    """K11 on the current stream; allocates its outputs, does not wait."""
+    dev = x.device
+    n = x.shape[0]
+    x, Xn, mask, R0, t0 = (v.contiguous() for v in (x, Xn, mask, R0, t0))
+    _cuda.require(x, "x", torch.float32, (n, 3), dev)
+    _cuda.require(Xn, "Xn", torch.float32, (n, 3), dev)
+    _cuda.require(mask, "mask", torch.bool, (n,), dev)
+    _cuda.require(R0, "R0", torch.float32, (3, 3), dev)
+    _cuda.require(t0, "t0", torch.float32, (3,), dev)
+    gates = (ctypes.c_float * len(LO_GATES))(*(threshold * m for m in LO_GATES))
+    rows = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    R = torch.empty((3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty(3, dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    inl = torch.empty(n, dtype=torch.bool, device=dev)
+    code = _cuda.library().lib.sfm_pnp_lo(   # Huber delta: refine_pose's default
+        *(v.data_ptr() for v in (x, Xn, mask, R0, t0)), n, max(refine_iters, 0), threshold,
+        ctypes.addressof(gates), len(LO_GATES), 3e-3, rows.data_ptr(), R.data_ptr(),
+        t.data_ptr(), count.data_ptr(), inl.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(code, "pnp_lo")
+    _cuda.launched("pnp_lo")
+    return R, t, inl, count[0]
+
+
+@f32_matmul
+def pnp_lo_plain(x, Xn, mask, R0, t0, *, threshold: float, refine_iters: int = 8):
+    """:func:`pnp_lo` in PyTorch, any device and dtype.
+
+    LO rounds on annealed gates: GN-polish the incumbent and DLT-refit
+    from scratch on its wide-gate support, keep whichever (or the
+    incumbent) has the most strict inliers."""
+    def strict(R, t):
+        return strict_count(R, t, x, Xn, mask, threshold)
+
+    R_best, t_best, c_best = R0, t0, strict(R0, t0)
+    for gate_mult in LO_GATES:
+        r_cur = reprojection_residuals(R_best, t_best, x, Xn)
+        wl = ((r_cur < threshold * gate_mult) & mask).to(x.dtype)
+        R1, t1 = refine_pose(R_best, t_best, x, Xn, wl, iters=refine_iters)
+        R2, t2 = pnp_dlt(x, Xn, weights=wl)
+        R2, t2 = refine_pose(R2, t2, x, Xn, wl, iters=refine_iters)
+        c1, c2 = strict(R1, t1), strict(R2, t2)
+        take2 = c2 >= c1
+        R1 = torch.where(take2, R2, R1)
+        t1 = torch.where(take2, t2, t1)
+        c1 = torch.maximum(c1, c2)
+        better = c1 > c_best
+        R_best = torch.where(better, R1, R_best)
+        t_best = torch.where(better, t1, t_best)
+        c_best = torch.where(better, c1, c_best)
+
+    inl = (reprojection_residuals(R_best, t_best, x, Xn) < threshold) & mask
+    return R_best, t_best, inl, inl.sum().to(torch.int32)

@@ -40,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"base_chain": 0, "scale_up": 0, "detect_maps": 0,
             "fused_orient_descriptor": 0, "descriptor_sample": 0,
             "match_top2": 0, "orientation_histogram_sample": 0,
-            "fused_orient_descriptor_win": 0, "refine_relative_pose": 0}
+            "fused_orient_descriptor_win": 0, "refine_relative_pose": 0,
+            "pnp_lo": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,6 +93,9 @@ _SIGNATURES = {
     # initial cost, stream
     "sfm_refine_relative_pose": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P,
                                  _P, _P, _P, _P),
+    # x, X, mask, R0, t0, n, iters, threshold, gates (host floats),
+    # rounds, huber_delta, rows (scratch), R, t, count, inliers, stream
+    "sfm_pnp_lo": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _F, _P, _P, _P, _P, _P, _P),
 }
 
 

@@ -279,6 +279,49 @@ def refine_problem(seed, n, B):
     return f32(Rs), f32(ts), f32(x1), f32(x2), w_bool, f32(w_float)
 
 
+def pnp_problem(seed, n, live, prior_wins, n_hyps=256, noise=1e-3, prior_deg=0.15):
+    """A registration for PnP as the sequence hands it over: n rows of
+    normalized observations x [n, 3] and world points X [n, 3] (a ~110
+    degree field of view, depths 2-8), a share ``live`` of them in the
+    mask, ``noise`` on the observations (the strict gate 1.2e-5 lies at
+    3.5 sigma of the default, so the LO rounds gain inliers on the
+    start), 20% of the live rows uniform outliers; dead rows carry row
+    0's point and an unrelated observation, as the sequence's unmatched
+    slots do.  The prior (R_init, t_init) sits ``prior_deg`` and 1e-3
+    from the truth where ``prior_wins``, else 8 degrees off; the
+    minimal sets [n_hyps, 6] hold two outliers each where the prior is
+    to win (so it has more support than every hypothesis), else inliers
+    only.  Returns float32 arrays (x, X, R_init, t_init), the
+    bool mask and the int64 sets."""
+    rng = np.random.default_rng(seed)
+    R = _rot([0.3, -1.0, 0.2], 0.3)
+    t = np.array([0.4, -0.1, 0.2])
+    Xc = rng.uniform([-2.8, -2.2, 2.0], [2.8, 2.2, 8.0], size=(n, 3))
+    X = (Xc - t) @ R
+    x = Xc / Xc[:, 2:3]
+    x[:, :2] += rng.normal(scale=noise, size=(n, 2))
+    mask = rng.random(n) < live
+    live_rows = np.flatnonzero(mask)
+    outlier = np.zeros(n, bool)
+    outlier[rng.choice(live_rows, int(0.2 * live_rows.size), replace=False)] = True
+    x[outlier, :2] = rng.uniform(-1, 1, size=(int(outlier.sum()), 2))
+    X[~mask] = X[0]
+    x[~mask, :2] = rng.uniform(-1, 1, size=(int((~mask).sum()), 2))
+    good, bad = np.flatnonzero(mask & ~outlier), np.flatnonzero(outlier)
+    if prior_wins and bad.size >= 2 and good.size >= 4:
+        sets = np.concatenate([np.stack([rng.choice(good, 4, replace=False) for _ in range(n_hyps)]),
+                               np.stack([rng.choice(bad, 2, replace=False) for _ in range(n_hyps)])],
+                              axis=1)
+    else:
+        pool = good if good.size >= 6 else np.arange(n)
+        sets = np.stack([rng.choice(pool, 6, replace=False) for _ in range(n_hyps)])
+    ang, dt = (prior_deg, 1e-3) if prior_wins else (8.0, 0.05)
+    R_init = _rot(rng.normal(size=3), np.radians(ang)) @ R
+    t_init = t + dt
+    f32 = lambda a: np.asarray(a, np.float32)
+    return f32(x), f32(X), f32(R_init), f32(t_init), mask, sets.astype(np.int64)
+
+
 def write_pgm(path, img):
     """Write an [H, W] 0..255 float image as an 8-bit binary PGM (P5),
     rounded to the nearest level: the form the command-line drivers of

@@ -134,3 +134,35 @@ def test_ransac_pnp_needs_exactly_one_draw_source(rng):
     g.manual_seed(0)
     res = pnp.ransac_pnp(T(x), T(X), generator=g, n_hyps=32, threshold=1e-6)
     assert int(res.num_inliers) == 20
+
+
+def test_ransac_pnp_on_cpu_takes_the_plain_lo_stage(rng, monkeypatch):
+    # CPU inputs take pnp_lo_plain, whatever the dtype: the kernel
+    # library is never built or loaded, and nothing is launched.
+    from sfm_tpu_torch.ops import _cuda
+
+    def no_library():
+        raise AssertionError("the CPU route reached the kernel library")
+
+    monkeypatch.setattr(_cuda, "library", no_library)
+    _cuda.reset_launches()
+    x, X, R, t = _scene(rng, n=120, noise=3e-4, outliers=30)
+    sets = np.stack([rng.choice(np.arange(30, 120), 6, replace=False) for _ in range(64)])
+    for dtype in (torch.float32, torch.float64):
+        seen = []
+        lo = pnp.pnp_lo
+
+        def spy(*args, **kwargs):
+            seen.append((args, kwargs))
+            return lo(*args, **kwargs)
+
+        monkeypatch.setattr(pnp, "pnp_lo", spy)
+        res = pnp.ransac_pnp(T(x).to(dtype), T(X).to(dtype), minimal_sets=T(sets),
+                             n_hyps=64, threshold=1e-5)
+        monkeypatch.setattr(pnp, "pnp_lo", lo)
+        (args, kwargs), = seen
+        plain = pnp.pnp_lo_plain(*args, **kwargs)
+        assert torch.equal(res.R, plain[0]) and torch.equal(res.inliers, plain[2])
+        assert res.num_inliers.dtype == torch.int32 and int(res.num_inliers) == int(plain[3]) >= 85
+        assert np.abs(res.R.double().numpy() - R).max() < 5e-3
+    assert _cuda.LAUNCHES["pnp_lo"] == 0
