@@ -20,7 +20,7 @@ device busy share (the union of the operations' intervals); ``by_stage``
 in its JSON summary is {span: [launches, device ms]}, "other" outside
 every span.
 
-The pair mode drives ``two_view_pipeline`` with ``chip_smoke.py``'s
+The pair mode drives ``two_view_pipeline`` with ``tests/path_configs.py``'s
 ``slice_config`` (bench.py's own config; ``--tvote-rounds`` sets its
 translation re-vote rounds, 0 in the bench, 1 in the package default)
 on the 720 x 576 synthetic pair (``tests/synthetic_pair.py``): first
@@ -85,7 +85,8 @@ import statistics
 import sys
 import time
 
-from chip_smoke import ROOT, card_line, slice_config
+from chip_smoke import ROOT  # puts tests/ on the path
+from path_configs import card_line, slice_config  # noqa: E402
 
 
 def profiled(fn):
@@ -252,22 +253,38 @@ def ring(card) -> int:
     import tempfile
 
     import numpy as np
+    import torch
 
     from chip_smoke import RING_FRAMES, run_turntable_driver, spy
     from sfm_tpu_torch.models import turntable
     from sfm_tpu_torch.ops import _cuda
+    from sfm_tpu_torch.sift import frontend
+    from sfm_tpu_torch.utils import timing
     from sfm_tpu_torch.utils.timing import StageTimer
     from synthetic_ring import synthetic_ring
 
     _cuda.library()
+    extract_sift = frontend.extract_sift
     runs = []
     with tempfile.TemporaryDirectory() as d:
         synthetic_ring(576, 720, n_frames=RING_FRAMES, directory=d)
         for _ in range(2):
             timer = StageTimer()
-            with spy(turntable, "reconstruct_turntable") as calls:
-                rc, m, _, _, _, wall = run_turntable_driver(d, os.path.join(d, "r"),
-                                                            timer=timer)
+
+            def extract(*args, **kwargs):   # the driver extracts before the chain
+                with timing.span("extract", timer=timer):
+                    return extract_sift(*args, **kwargs)
+
+            frontend.extract_sift = extract
+            try:
+                with spy(turntable, "reconstruct_turntable") as calls:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rc, m, *_ = run_turntable_driver(d, os.path.join(d, "r"), timer=timer)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                frontend.extract_sift = extract_sift
             per_frame = {k: v["total_ms"] / RING_FRAMES
                          for k, v in timer.summary().items()}
             runs.append({"rc": rc, "wall_ms": wall, "stage_ms_per_frame": per_frame,

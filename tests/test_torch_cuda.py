@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card.  Marked ``cuda``: they skip where no card is present (a CUDA
-kernel has no interpret mode).  On the card, run them without the
-JAX-importing conftest:
+card: the repository's one place for kernel-vs-plain holds, at small
+and ragged shapes and at the bench and up-scale paths' own (the base
+chain on the 1920 x 2560 up-scale base, K3 on both paths' octave bases,
+K4, K5, K8 and K9 on both paths' capped sample slots, K6 at 23,552^2 x
+128, the XLA route's kernels on both paths' inputs).  Marked ``cuda``:
+they skip where no card is present (a CUDA kernel has no interpret
+mode).  On the card, run them without the JAX-importing conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -32,6 +36,7 @@ by 1e-4 deg in R and 5e-6 relative in t, with equal strict counts.
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -54,7 +59,47 @@ def pair():
     return synthetic_pair(192, 256, seed=0)
 
 
-@pytest.mark.parametrize("shape", [(576, 720), (575, 719), (960, 1280), (5, 3)])
+@pytest.fixture(scope="module")
+def path_scene():
+    """The bench path's pair and SIFT config (bench.py's on the 576 x 720
+    synthetic pair) and the up-scale path's (up_t2.0 on the 960 x 1280
+    rotation pair), each rendered once: path -> (pair, SiftConfig)."""
+    from path_configs import slice_config, upscale_config
+    from synthetic_pair import rotation_pair
+
+    scenes = {}
+
+    def get(path):
+        if path not in scenes:
+            scenes[path] = ((rotation_pair(960, 1280, seed=0), upscale_config())
+                            if path == "up-scale" else
+                            (synthetic_pair(576, 720, seed=0), slice_config().sift))
+        return scenes[path]
+    return get
+
+
+# The sample slots each path hands the sampling kernels.
+PATH_SLOTS = {"bench": 2560, "module API": 5120, "up-scale": 11776}
+
+
+def _path_slots(path_scene, path, dev):
+    """(atlas, x, y, scale, count) of the first image's sample slots on a
+    path: the capped slots the bench and up-scale paths hand K4 / K9, or
+    the module API's every detection slot, compacted valid-first."""
+    from sfm_tpu_torch.ops import compact
+    from sfm_tpu_torch.sift import frontend
+
+    scene, cfg = path_scene("up-scale" if path == "up-scale" else "bench")
+    atlas, dets = frontend.detect_stage(torch.as_tensor(scene["img1"], device=dev), cfg)
+    x, y, s, v, sharp = (torch.cat([getattr(d, f) for d in dets])
+                         for f in ("x", "y", "scale", "valid", "sharpness"))
+    order = (compact.compaction_order(v) if path == "module API" else
+             frontend._sample_order(v, sharp, cfg.sample_cap, [d.x.shape[0] for d in dets]))
+    assert order.shape[0] == PATH_SLOTS[path]
+    return atlas, x[order], y[order], s[order], v[order].sum().to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(576, 720), (575, 719), (960, 1280), (5, 3), (1920, 2560)])
 def test_pyramid_kernels_match_plain(dev, shape):
     """The base chain (K1 + K2 in one launch) equals the plain chain bit
     for bit at 1, 2, 5 and 9 levels where the shape has them; blur9,
@@ -109,11 +154,13 @@ def test_detect_kernel_matches_plain(dev, pair):
         assert bool((rk[~ck] == -1).all())
 
 
-@pytest.mark.parametrize("shape,octaves", [((575, 719), 5), ((40, 30), 3)])
+@pytest.mark.parametrize("shape,octaves", [((575, 719), 5), ((40, 30), 3), ((576, 720), 5),
+                                           ((1920, 2560), 5)])
 def test_detect_octaves_launch_is_exact(dev, shape, octaves):
     """All octaves in one launch equal the per-octave launches and the
     plain version bit for bit (the 40 x 30 image's last octave, 10 x 7,
-    fills less than one strip)."""
+    fills less than one strip; 576 x 720 and 1920 x 2560 are the bench
+    and up-scale paths' bases)."""
     from sfm_tpu_torch.config import SiftConfig
     from sfm_tpu_torch.ops import _cuda
     from sfm_tpu_torch.ops.detect import (detect_maps, detect_maps_octaves,
@@ -173,7 +220,7 @@ def test_detect_gated_mode_equals_plain(dev, shape, up, lowest_scale):
     assert n_cand > 1000
 
 
-@pytest.mark.parametrize("num_scales,lean", [(8, True), (10, False), (10, True)])
+@pytest.mark.parametrize("num_scales,lean", [(8, True), (10, False), (10, True), (8, False)])
 def test_detect_nine_octaves_and_up_to_13_planes(dev, num_scales, lean):
     """9 octaves take two launches (8 + 1) equal to the per-octave
     launches and the plain version bit for bit, at 11 and 13 planes; a
@@ -240,8 +287,8 @@ def test_detect_past_13_planes_equals_plain(dev, num_scales, lean):
 
 
 @pytest.mark.parametrize("bf16", [True, False])
-@pytest.mark.parametrize("n1", [1, 33, 300, 5121])
-@pytest.mark.parametrize("n2", [1, 700, 5121])
+@pytest.mark.parametrize("n1", [1, 33, 300, 5121, 23552])
+@pytest.mark.parametrize("n2", [1, 700, 5121, 23552])
 def test_match_kernel_ragged_sizes(dev, n1, n2, bf16):
     from sfm_tpu_torch.ops.match import match_top2, match_top2_plain
     from sfm_tpu_torch.utils.precision import f32_precision
@@ -349,24 +396,51 @@ def _keypoints(rng, K, H, W, dev):
     return (torch.as_tensor(a, device=dev) for a in (x, y, s, o))
 
 
-def test_sample_kernels_match_plain(dev, pair):
-    from sfm_tpu_torch.ops import sample
+@pytest.mark.parametrize("slots", ["random", "bench", "up-scale", "module API"])
+def test_sample_kernels_match_plain(dev, pair, path_scene, slots):
+    """K4 and K5 against their plain versions: on 256 random keypoints of
+    the 192 x 256 pair (250 live), 99% of K4's rows within 1e-3 and K5 at
+    random orientations to 1e-5; on the bench and up-scale paths' capped
+    slots, 99.5% of K4's rows within 1e-3 and 0.01 deg, and K5 on K4's
+    duplicates, compacted valid-first, to 1e-3; on the module API's
+    5,120 detection slots, compacted valid-first, K5 at
+    ``assign_orientations``' first orientations (K8's route) to 1e-3.
+    Rows >= count zero."""
+    from sfm_tpu_torch.ops import compact, sample
+    from sfm_tpu_torch.sift import orient
     from sfm_tpu_torch.sift.describe import normalize_descriptors
 
-    atlas = torch.as_tensor(pair["img1"], device=dev)
-    x, y, s, o = _keypoints(np.random.default_rng(0), 256, 192, 256, dev)
-    count = torch.tensor(250, device=dev)
-    d1k, o1k, o2k, dk = sample.fused_orient_descriptor(atlas, x, y, s, count)
-    d1p, o1p, o2p, dp = sample.fused_orient_descriptor_plain(atlas, x, y, s, count)
-    row = (normalize_descriptors(d1k) - normalize_descriptors(d1p)).abs().amax(1)
-    assert float((row[:250] <= 1e-3).float().mean()) >= 0.99
-    assert float((dk == dp)[:250].float().mean()) >= 0.99
-    assert not bool(d1k[250:].any()) and not bool(o1k[250:].any())
+    if slots == "random":
+        atlas = torch.as_tensor(pair["img1"], device=dev)
+        x, y, s, o = _keypoints(np.random.default_rng(0), 256, 192, 256, dev)
+        count = torch.tensor(250, device=dev)
+        share, ori_tol, k5_tol = 0.99, None, 1e-5
+    else:
+        atlas, x, y, s, count = _path_slots(path_scene, slots, dev)
+        share, ori_tol, k5_tol = 0.995, 0.01, 1e-3
+    n = int(count)
+    if slots == "module API":
+        live = torch.arange(x.shape[0], device=dev) < n
+        o = orient.assign_orientations(atlas, x, y, s, live, use_pallas=True)[0]
+    else:
+        d1k, o1k, o2k, dk = sample.fused_orient_descriptor(atlas, x, y, s, count)
+        d1p, o1p, o2p, dp = sample.fused_orient_descriptor_plain(atlas, x, y, s, count)
+        agree = (normalize_descriptors(d1k) - normalize_descriptors(d1p)).abs().amax(1) <= 1e-3
+        if ori_tol is not None:
+            agree &= ((o1k - o1p + 180.0) % 360.0 - 180.0).abs() <= ori_tol
+        assert float(agree[:n].float().mean()) >= share
+        assert float((dk == dp)[:n].float().mean()) >= share
+        assert not bool(d1k[n:].any()) and not bool(o1k[n:].any())
+    if slots in ("bench", "up-scale"):
+        dup = dk & (torch.arange(dk.shape[0], device=dev) < n)
+        od = compact.compaction_order(dup)
+        x, y, s, o, count = x[od], y[od], s[od], o2k[od], dup.sum().to(torch.int32)
+        assert int(count) > 0
     rk = sample.descriptor_sample(atlas, x, y, s, o, count)
     rp = sample.descriptor_sample_plain(atlas, x, y, s, o, count)
     err = (normalize_descriptors(rk) - normalize_descriptors(rp)).abs().max()
-    assert float(err) <= 1e-5
-    assert not bool(rk[250:].any())
+    assert float(err) <= k5_tol
+    assert not bool(rk[int(count):].any())
 
 
 def _border_keypoints(rng, K, H, W, dev):
@@ -381,52 +455,73 @@ def _border_keypoints(rng, K, H, W, dev):
     return (torch.as_tensor(a.astype(np.float32), device=dev) for a in (x, y, s))
 
 
-@pytest.mark.parametrize("shape", [(192, 256), (30, 40), (200, 130)])
-def test_orientation_kernel_matches_plain(dev, shape):
+@pytest.mark.parametrize("shape", [(192, 256), (30, 40), (200, 130), "bench", "module API",
+                                   "up-scale"])
+def test_orientation_kernel_matches_plain(dev, path_scene, shape):
+    """K8 within 1e-6 of the largest bin of its plain version, on random
+    keypoints a third of which hug the image's edges, and on the slots
+    the bench path, the module API and the up-scale path hand it."""
     from sfm_tpu_torch.ops import sample
 
-    rng = np.random.default_rng(5)
-    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
-    x, y, s = _border_keypoints(rng, 259, *shape, dev)
-    count = torch.tensor(250, device=dev)
+    if isinstance(shape, str):
+        img, x, y, s, count = _path_slots(path_scene, shape, dev)
+    else:
+        rng = np.random.default_rng(5)
+        img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+        x, y, s = _border_keypoints(rng, 259, *shape, dev)
+        count = torch.tensor(250, device=dev)
+    n = int(count)
     hk = sample.orientation_histogram_sample(img, x, y, s, count)
     hp = sample.orientation_histogram_sample_plain(img, x, y, s, count)
     assert float((hk - hp).abs().max()) <= 1e-6 * float(hp.abs().max())
-    assert not bool(hk[250:].any()) and bool((hk[:250].sum(1) > 0).all())
+    assert not bool(hk[n:].any()) and bool((hk[:n].sum(1) > 0).all())
 
 
-@pytest.mark.parametrize("shape", [(192, 256), (30, 40), (200, 130)])
-def test_window_kernel_equals_fused_kernel(dev, shape):
+@pytest.mark.parametrize("shape", [(192, 256), (30, 40), (200, 130), "bench", "up-scale"])
+def test_window_kernel_equals_fused_kernel(dev, path_scene, shape):
+    """K9 equals K4 bit for bit, and its rows hold to the plain version
+    (99% within 1e-3 on random keypoints, 99.5% on the bench and up-scale
+    paths' capped slots)."""
     from sfm_tpu_torch.ops import sample
     from sfm_tpu_torch.sift.describe import normalize_descriptors
 
-    rng = np.random.default_rng(6)
-    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
-    x, y, s = _border_keypoints(rng, 203, *shape, dev)
-    count = torch.tensor(198, device=dev)
+    if isinstance(shape, str):
+        img, x, y, s, count = _path_slots(path_scene, shape, dev)
+        share = 0.995
+    else:
+        rng = np.random.default_rng(6)
+        img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+        x, y, s = _border_keypoints(rng, 203, *shape, dev)
+        count = torch.tensor(198, device=dev)
+        share = 0.99
+    n = int(count)
     win = sample.fused_orient_descriptor_win(img, x, y, s, count)
     for a, b in zip(win, sample.fused_orient_descriptor(img, x, y, s, count)):
         assert torch.equal(a, b)
     d1p, o1p, _, dp = sample.fused_orient_descriptor_plain(img, x, y, s, count)
     row = (normalize_descriptors(win[0]) - normalize_descriptors(d1p)).abs().amax(1)
-    assert float((row[:198] <= 1e-3).float().mean()) >= 0.99
-    assert float((win[3] == dp)[:198].float().mean()) >= 0.99
-    assert not bool(win[0][198:].any()) and not bool(win[3][198:].any())
+    assert float((row[:n] <= 1e-3).float().mean()) >= share
+    assert float((win[3] == dp)[:n].float().mean()) >= share
+    assert not bool(win[0][n:].any()) and not bool(win[3][n:].any())
 
 
-@pytest.mark.parametrize("shape", [(192, 256), (30, 40), (200, 130)])
-def test_descriptor_kernel_at_fused_orientation_equals_fused(dev, shape):
+@pytest.mark.parametrize("shape", [(192, 256), (30, 40), (200, 130), "bench", "up-scale"])
+def test_descriptor_kernel_at_fused_orientation_equals_fused(dev, path_scene, shape):
     """K5 on K4's (x, y, scale, ori1) gives K4's d1 bit for bit: both run
-    one warp device function for the descriptor."""
+    one warp device function for the descriptor; on random keypoints and
+    on the bench and up-scale paths' capped slots."""
     from sfm_tpu_torch.ops import sample
 
-    rng = np.random.default_rng(6)
-    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
-    x, y, s = _border_keypoints(rng, 203, *shape, dev)
-    count = torch.tensor(198, device=dev)
+    if isinstance(shape, str):
+        img, x, y, s, count = _path_slots(path_scene, shape, dev)
+    else:
+        rng = np.random.default_rng(6)
+        img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32), device=dev)
+        x, y, s = _border_keypoints(rng, 203, *shape, dev)
+        count = torch.tensor(198, device=dev)
     d1, o1, _, _ = sample.fused_orient_descriptor(img, x, y, s, count)
     assert torch.equal(sample.descriptor_sample(img, x, y, s, o1, count), d1)
-    assert bool(d1[:198].any(dim=1).all())
+    assert bool(d1[:int(count)].any(dim=1).all())
 
 
 @pytest.mark.parametrize("kernel", ["K4+K5", "K8", "K9"])
@@ -1055,18 +1150,25 @@ def test_xla_route_extract_sift_on_cuda_matches_cpu(dev, pair, fused_detect,
                 launches["fused_orient_descriptor_win"]) == (1, 1, 0, 0)
 
 
-def test_xla_route_kernels_match_plain_at_its_shapes(dev, pair):
+@pytest.mark.parametrize("path", ["small", "bench", "up-scale"])
+def test_xla_route_kernels_match_plain_at_its_shapes(dev, pair, path_scene, path):
     """K8 on the route's capped slots, K5 on its 2K compacted slots and
     K6 in its f32 mode on its descriptor sets, against their plain
     versions: K8 within 1e-6 of the largest bin, K5 to 1e-5 and corr >
     0.9999, K6 f32 scores within 1e-5 and the same index wherever the
-    best leads the second by more than that."""
+    best leads the second by more than that; rows >= count zero.  On the
+    small pair at ``XLA_SIFT``, and on the bench and up-scale paths'
+    pairs and configs on the route (K6 at 5,120^2 and 23,552^2)."""
     from sfm_tpu_torch.config import SiftConfig
     from sfm_tpu_torch.ops import compact, match, sample
     from sfm_tpu_torch.sift import describe, frontend, orient
     from sfm_tpu_torch.utils.precision import f32_precision
 
-    cfg = SiftConfig(**XLA_SIFT)
+    if path == "small":
+        cfg = SiftConfig(**XLA_SIFT)
+    else:
+        pair, cfg = path_scene(path)
+        cfg = dataclasses.replace(cfg, fused_detect=False, use_pallas=False)
     atlas, dets = frontend.detect_stage(torch.as_tensor(pair["img1"], device=dev), cfg)
     x, y, s, v, sh = (torch.cat([getattr(d, f) for d in dets])
                       for f in ("x", "y", "scale", "valid", "sharpness"))
@@ -1076,6 +1178,7 @@ def test_xla_route_kernels_match_plain_at_its_shapes(dev, pair):
     hk = sample.orientation_histogram_sample(atlas, x, y, s, count)
     hp = sample.orientation_histogram_sample_plain(atlas, x, y, s, count)
     assert float((hk - hp).abs().max()) <= 1e-6 * float(hp.abs().max())
+    assert not bool(hk[int(count):].any())
     o1, o2, v2 = orient.orientations_from_histograms(hp, v)
     valid2 = torch.cat([v, v2])
     oc = compact.compaction_order(valid2)
@@ -1086,6 +1189,7 @@ def test_xla_route_kernels_match_plain_at_its_shapes(dev, pair):
     assert float((rk - rp).abs().max()) <= 1e-5 * float(rp.abs().max())
     nk, np_ = describe.normalize_descriptors(rk), describe.normalize_descriptors(rp)
     assert float((nk * np_).sum(1)[:int(c2)].min()) > 0.9999
+    assert not bool(rk[int(c2):].any())
     s1 = frontend.extract_sift(torch.as_tensor(pair["img1"], device=dev), cfg)
     s2 = frontend.extract_sift(torch.as_tensor(pair["img2"], device=dev), cfg)
     a, b, vb = s1.descriptors, s2.descriptors, s2.keypoints.valid
@@ -1206,11 +1310,38 @@ def test_k6_launch_falls_inside_match_top2(dev):
     assert top2.kernel_launches == 1
 
 
-@pytest.mark.parametrize("weights", ["bool [N]", "float [B, N]"])
-@pytest.mark.parametrize("iters", [1, 6, 10])
-@pytest.mark.parametrize("n", [37, 2560, 9000])
-@pytest.mark.parametrize("B", [1, 8])
-def test_refine_kernel_matches_plain(dev, B, n, iters, weights):
+def _bench_refine_calls(path_scene, dev, monkeypatch):
+    """The bench pair's first two K10 calls, captured from
+    ``two_view_pipeline`` at bench.py's config with seed 0: the probe's
+    (8 starts x 6 steps) and the first refine round's (1 x 10), each as
+    (args, kwargs)."""
+    from path_configs import slice_config
+    from sfm_tpu_torch.geometry import refine
+    from sfm_tpu_torch.models import two_view
+
+    scene, _ = path_scene("bench")
+    img1, img2, K = (torch.as_tensor(scene[k], device=dev) for k in ("img1", "img2", "K"))
+    seen = []
+    fn = refine.refine_relative_pose
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(refine, "refine_relative_pose", spy)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    two_view.two_view_pipeline(img1, img2, K, gen, slice_config())
+    monkeypatch.setattr(refine, "refine_relative_pose", fn)
+    return seen[:2]
+
+
+@pytest.mark.parametrize("B,n,iters,weights", [
+    *(pytest.param(*c, id="-".join(map(str, c))) for c in itertools.product(
+        [1, 8], [37, 2560, 9000], [1, 6, 10], ["bool [N]", "float [B, N]"])),
+    pytest.param(8, 2560, 6, "bench pair", id="8-2560-6-bench pair"),
+    pytest.param(1, 2560, 10, "bench pair", id="1-2560-10-bench pair")])
+def test_refine_kernel_matches_plain(dev, path_scene, monkeypatch, B, n, iters, weights):
     """K10 against the plain route (``refine_relative_pose_plain``: five
     ``jvp`` columns, cuBLAS products, ``solve_ex``), both in float32 on
     the card, each measured against the plain route in float64: K10's
@@ -1222,22 +1353,33 @@ def test_refine_kernel_matches_plain(dev, B, n, iters, weights):
     converges, a step taken or refused on that rounding moves the pose
     along the cost's flat valley; on these scenes the plain f32 route
     alone sits up to 7e-5 relative and 2e-3 deg from float64 (CPU
-    runs).  LAUNCHES counts one launch per call."""
+    runs).  On the bench pair's own calls (the probe and the first
+    round, captured from ``two_view_pipeline``), whose narrow field
+    lets both f32 routes drift ~2e-4 deg in R and ~1e-3 deg in t, K10
+    may pass the plain route by 5e-4 deg in R and 1.5e-3 deg in t.
+    LAUNCHES counts one launch per call."""
     from sfm_tpu_torch.geometry import refine
     from sfm_tpu_torch.ops import _cuda
 
-    Rs, ts, x1, x2, w_bool, w_float = refine_problem(100 * B + n + iters, n, B)
-    w = w_bool if weights == "bool [N]" else w_float
-    args = [torch.as_tensor(a, device=dev) for a in (Rs, ts, x1, x2, w)]
-    if B == 1:   # the unbatched form: R [3, 3], t [3], weights [N]
-        args = [args[0][0], args[1][0], *args[2:4], args[4].reshape(n)]
+    if weights == "bench pair":
+        args, kw = _bench_refine_calls(path_scene, dev, monkeypatch)[B == 1]
+        assert (args[0].reshape(-1, 9).shape[0], args[2].shape[0], kw["iters"]) == (B, n, iters)
+        rot_tol, t_tol = 5e-4, 1.5e-3
+    else:
+        Rs, ts, x1, x2, w_bool, w_float = refine_problem(100 * B + n + iters, n, B)
+        w = w_bool if weights == "bool [N]" else w_float
+        args = [torch.as_tensor(a, device=dev) for a in (Rs, ts, x1, x2, w)]
+        if B == 1:   # the unbatched form: R [3, 3], t [3], weights [N]
+            args = [args[0][0], args[1][0], *args[2:4], args[4].reshape(n)]
+        args, kw = args[:4], dict(weights=args[4], iters=iters)
+        rot_tol = t_tol = 1e-3 if iters == 1 else 2e-3
     _cuda.reset_launches()
-    k = refine.refine_relative_pose(*args[:4], weights=args[4], iters=iters)
+    k = refine.refine_relative_pose(*args, **kw)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["refine_relative_pose"] == 1
-    p = refine.refine_relative_pose_plain(*args[:4], weights=args[4], iters=iters)
-    p64 = refine.refine_relative_pose_plain(*(a.double() for a in args[:4]),
-                                            weights=args[4].double(), iters=iters)
+    p = refine.refine_relative_pose_plain(*args, **kw)
+    p64 = refine.refine_relative_pose_plain(*(a.double() for a in args),
+                                            **{**kw, "weights": kw["weights"].double()})
     assert _cuda.LAUNCHES["refine_relative_pose"] == 1
     for a, b in zip(k, p):
         assert a.shape == b.shape and a.dtype == torch.float32 and a.is_cuda
@@ -1247,12 +1389,11 @@ def test_refine_kernel_matches_plain(dev, B, n, iters, weights):
         exact = getattr(p64, name)
         err_k, err_p = ((getattr(r, name).double() - exact).abs() / exact.abs() for r in (k, p))
         assert bool((err_k <= err_p + 1e-4).all()), (name, err_k, err_p)
-    tol = 1e-3 if iters == 1 else 2e-3
     host = lambda r: (r.R.cpu().numpy().reshape(-1, 3, 3), r.t.cpu().numpy().reshape(-1, 3))
     rot_k, t_k = pose_errors_deg(*host(k), *host(p64))
     rot_p, t_p = pose_errors_deg(*host(p), *host(p64))
-    assert (rot_k <= rot_p + tol).all(), (rot_k, rot_p)
-    assert (t_k <= t_p + tol).all(), (t_k, t_p)
+    assert (rot_k <= rot_p + rot_tol).all(), (rot_k, rot_p)
+    assert (t_k <= t_p + t_tol).all(), (t_k, t_p)
 
 
 def test_refine_kernel_checks_its_inputs(dev):
@@ -1296,9 +1437,38 @@ def _lo_inputs(problem, dev, monkeypatch):
     return args, kwargs, res
 
 
-@pytest.mark.parametrize("prior", ["wins", "loses"])
-@pytest.mark.parametrize("live", [0.0, 0.5, 1.0])
-@pytest.mark.parametrize("n", [37, 2000, 15360])
+def _sequence_lo_call(dev, monkeypatch):
+    """The LO inputs of the last frame ``run_incremental`` registers on
+    the 12-frame 576 x 720 arc at the CLI's defaults with closure (0,
+    11), and K11's output in that run: (args, kwargs, output)."""
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu_torch.geometry import pnp
+    from sfm_tpu_torch.models import incremental
+    from synthetic_sequence import synthetic_sequence
+
+    seq = synthetic_sequence(576, 720, n_frames=12)
+    seen = []
+    lo = pnp.pnp_lo
+
+    def spy(*args, **kwargs):
+        out = lo(*args, **kwargs)
+        seen.append((args, kwargs, out))
+        return out
+
+    monkeypatch.setattr(pnp, "pnp_lo", spy)
+    cfg = PipelineConfig(sift=SiftConfig(max_pts_per_octave=1024),
+                         ransac=RansacConfig(n_hyps=1024, threshold=3e-6))
+    incremental.run_incremental([torch.as_tensor(im, device=dev) for im in seq["images"]],
+                                seq["K"], cfg, seed=0, ba_iters=20, closure_pairs=[(0, 11)])
+    monkeypatch.setattr(pnp, "pnp_lo", lo)
+    assert len(seen) == 10   # frames 2-11
+    return seen[-1]
+
+
+@pytest.mark.parametrize("n,live,prior", [
+    *(pytest.param(*c, id="-".join(map(str, c))) for c in itertools.product(
+        [37, 2000, 15360], [0.0, 0.5, 1.0], ["wins", "loses"])),
+    pytest.param(15360, None, "sequence frame 11", id="15360-sequence-frame 11")])
 def test_pnp_lo_kernel_matches_plain(dev, n, live, prior, monkeypatch):
     """K11 against the plain route (``pnp_lo_plain``: ``refine_pose``,
     ``pnp_dlt``'s Jacobi SVDs, cuBLAS products, ``solve_ex``) on the LO
@@ -1315,31 +1485,43 @@ def test_pnp_lo_kernel_matches_plain(dev, n, live, prior, monkeypatch):
     past the plain route by at most 1.7e-5 deg and 4.1e-7.  A row's
     residual moves by far less than the gap between the strict gate
     (3.5e-3) and the rows near it, so the strict counts and inlier
-    masks are equal.  One launch a call, and a call repeats bit for
-    bit."""
+    masks are equal.  On the sequence's last registered frame's own
+    inputs (frame 11: 3 frames x 5,120 slots), where a row may sit at
+    the strict gate, the counts agree within a row or 0.1%.  One launch
+    a call, and a call repeats bit for bit."""
     from sfm_tpu_torch.geometry import pnp
     from sfm_tpu_torch.ops import _cuda
 
-    problem = pnp_problem(n + int(10 * live) + (prior == "wins"), n, live, prior == "wins")
-    _cuda.reset_launches()
-    args, kwargs, res = _lo_inputs(problem, dev, monkeypatch)
-    torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["pnp_lo"] == 1
+    if prior == "sequence frame 11":
+        args, kwargs, first = _sequence_lo_call(dev, monkeypatch)
+        assert args[0].shape[0] == n
+        _cuda.reset_launches()
+    else:
+        problem = pnp_problem(n + int(10 * live) + (prior == "wins"), n, live, prior == "wins")
+        _cuda.reset_launches()
+        args, kwargs, res = _lo_inputs(problem, dev, monkeypatch)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["pnp_lo"] == 1
+        _cuda.reset_launches()
+        first = (res.R, None, res.inliers, res.num_inliers)
+        if live > 0:   # the prior took the LO start where it was to win
+            won = bool(torch.equal(args[3], torch.as_tensor(problem[2], device=dev)))
+            assert won == (prior == "wins")
     x, Xn, mask, R0, t0 = args
-    if live > 0:   # the prior took the LO start where it was to win
-        won = bool(torch.equal(R0, torch.as_tensor(problem[2], device=dev)))
-        assert won == (prior == "wins")
     k = pnp.pnp_lo(*args, **kwargs)
-    assert _cuda.LAUNCHES["pnp_lo"] == 2
-    assert (torch.equal(k[0], res.R) and torch.equal(k[2], res.inliers)
-            and torch.equal(k[3], res.num_inliers))
+    assert _cuda.LAUNCHES["pnp_lo"] == 1
+    assert all(b is None or torch.equal(a, b) for a, b in zip(k, first))
     p = pnp.pnp_lo_plain(*args, **kwargs)
     p64 = pnp.pnp_lo_plain(x.double(), Xn.double(), mask, R0.double(), t0.double(), **kwargs)
-    assert _cuda.LAUNCHES["pnp_lo"] == 2
+    assert _cuda.LAUNCHES["pnp_lo"] == 1
     for a, b in zip(k, p):
         assert a.shape == b.shape and a.dtype == b.dtype and a.is_cuda
-    assert int(k[3]) == int(p[3]) == int(k[2].sum())
-    assert torch.equal(k[2], p[2])
+    assert int(k[3]) == int(k[2].sum())
+    if prior == "sequence frame 11":
+        assert abs(int(k[3]) - int(p[3])) <= max(1, int(p[3]) // 1000)
+    else:
+        assert int(k[3]) == int(p[3])
+        assert torch.equal(k[2], p[2])
     host = lambda r: (r[0].cpu().numpy(), r[1].cpu().numpy())
     rot_k, _ = pose_errors_deg(*host(k), *host(p64))
     rot_p, _ = pose_errors_deg(*host(p), *host(p64))

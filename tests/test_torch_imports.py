@@ -1,6 +1,7 @@
-"""The port and ``chip_smoke.py`` import no jax and nothing of the JAX
-package (every module walked, the XLA routes' modules among them), and
-the port rejects the knobs it does not implement."""
+"""The port and the card's harnesses (``chip_smoke.py``, ``kernel_ab.py``,
+``profile_port.py``) import no jax and nothing of the JAX package (every
+module walked, the XLA routes' modules among them), and the port
+rejects the knobs it does not implement."""
 
 import dataclasses
 import os
@@ -42,14 +43,14 @@ walked = {"sfm_tpu_torch.models.tracks", "sfm_tpu_torch.models.turntable",
           "sfm_tpu_torch.utils.timing"}
 assert walked <= set(sys.modules), walked - set(sys.modules)
 """ + _CHECK
-# chip_smoke.py imported as a module: main() does not run.
-_PROBE_SMOKE = """
-import sys
-import chip_smoke
-""" + _CHECK
+# The card's harnesses imported as modules: main() does not run.
+_PROBE_SMOKE, _PROBE_KERNEL_AB, _PROBE_PROFILE = ("import sys\nimport %s\n" % m + _CHECK
+                                                  for m in ("chip_smoke", "kernel_ab",
+                                                            "profile_port"))
 
 
-@pytest.mark.parametrize("probe", [_PROBE, _PROBE_SMOKE], ids=["port", "chip_smoke"])
+@pytest.mark.parametrize("probe", [_PROBE, _PROBE_SMOKE, _PROBE_KERNEL_AB, _PROBE_PROFILE],
+                         ids=["port", "chip_smoke", "kernel_ab", "profile_port"])
 def test_port_imports_no_jax(probe):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _ROOT

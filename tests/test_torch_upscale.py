@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import h_fit
+from path_configs import h_fit
 from synthetic_pair import homography_grid_errors, rotation_pair
 from sfm_tpu.config import MatchConfig, SiftConfig
 from sfm_tpu.sift import frontend as jfrontend
@@ -77,7 +77,7 @@ def test_upscale_frontend_and_matches_match_jax(pair, jax_stages):
 
 
 def test_upscale_h_fit_on_the_port_recovers_the_pair(pair):
-    # bench_upscale.py:116-134 (chip_smoke.h_fit) on the port's own
+    # bench_upscale.py:116-134 (path_configs.h_fit) on the port's own
     # extraction and matches.
     s1 = frontend.extract_sift(torch.as_tensor(pair["img1"]), TCFG)
     s2 = frontend.extract_sift(torch.as_tensor(pair["img2"]), TCFG)
