@@ -116,20 +116,23 @@ to 0 just before it and read just after; each must launch every kernel
 it goes through, the base chain exactly once per image and K3 once per
 image and 8 octaves it extracts, K6 once per matched pair on the
 sequence, K10 three times a bench pair, K11 once per frame registered by
-PnP, and together they launch every kernel (K1 and K2 are one kernel).
+PnP, K12 three times a bench pair and twice a ``run_incremental`` (its
+bootstrap), and together they launch every kernel (K1 and K2 are one
+kernel).
 
 While a path runs, ``capture`` keeps the inputs and outputs of each
 kernel wrapper's first call (K10's first two, the probe's and a refine
-round's; K11's last, the last frame registered); after the path's
-launches are read, ``hold_kernels`` runs the kernel's plain twin on the
-same card tensors and holds the kernel to it (``HOLDS``): the bench
-path (the base chain, K3 lean, K4, K5, K6 bf16 at 5,120^2, K10), the
-up-scale path (K7, the chain on its 1920 x 2560 base, K3, K4, K5 and K6
-on its 11,776 slots), its gated run (K3 gated), the module API (K8 and
-K5 on its 5,120 slots), the window run (K9), the sequence (K11 on frame
-11's own LO inputs) and the XLA routes' bench and up-scale paths (K8,
-K5 on two-stage sampling's slots, K6 f32).  Every kernel must be held
-on some path.
+round's; K11's last, the last frame registered; K12's first three, a
+bench pair's, or the first bootstrap's two and the next); after the
+path's launches are read, ``hold_kernels`` runs the kernel's plain twin
+on the same card tensors and holds the kernel to it (``HOLDS``): the
+bench path (the base chain, K3 lean, K4, K5, K6 bf16 at 5,120^2, K10,
+K12), the up-scale path (K7, the chain on its 1920 x 2560 base, K3, K4,
+K5 and K6 on its 11,776 slots), its gated run (K3 gated), the module
+API (K8 and K5 on its 5,120 slots), the window run (K9), the sequence
+(K11 on frame 11's own LO inputs, K12 on the bootstraps' own rows) and
+the XLA routes' bench and up-scale paths (K8, K5 on two-stage
+sampling's slots, K6 f32).  Every kernel must be held on some path.
 
 The last lines of standard output are each kernel's launches by path,
 each kernel's largest error against its twin by path (``{"kernels":
@@ -325,6 +328,10 @@ PATH_K10 = {"bench": 3 * 8}
 # run with a closure, reconstruct_dino's run on the ring, the mesh's CLI run.
 PATH_K11 = {"sequence": 2 * (SEQ_FRAMES - 2), "ring": RING_FRAMES - 2,
             "distributed": SEQ_FRAMES - 2}
+# K12 launches: three a bench pair (the two refine rounds' and the
+# final vote), two a run_incremental (its bootstrap's) on the paths that
+# run it.
+PATH_K12 = {"bench": 3 * 8, "sequence": 2 * 2, "ring": 2, "distributed": 2}
 PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
            + sequence_matches(SEQ_FRAMES, len(SEQ_CLOSURES)),
            "ring": sequence_matches(RING_FRAMES) + RING_PAIRS,
@@ -332,18 +339,20 @@ PATH_K6 = {"sequence": sequence_matches(SEQ_FRAMES)
 # Kernels each main path must launch (phases 3 to 10).
 _BASE = {"base_chain", "detect_maps", "descriptor_sample"}
 PATH_KERNELS = {
-    "bench": _BASE | {"fused_orient_descriptor", "match_top2", "refine_relative_pose"},
+    "bench": _BASE | {"fused_orient_descriptor", "match_top2", "refine_relative_pose",
+                      "recover_pose"},
     "upscale": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "module_api": _BASE | {"orientation_histogram_sample"},
     "upscale_window": _BASE | {"scale_up", "fused_orient_descriptor_win",
                                "match_top2"},
     "upscale_lowest": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2"},
     "cli": _BASE | {"scale_up", "fused_orient_descriptor", "match_top2",
-                    "refine_relative_pose"},
+                    "refine_relative_pose", "recover_pose"},
     "sequence": _BASE | {"fused_orient_descriptor", "match_top2", "refine_relative_pose",
-                         "pnp_lo"},
-    "ring": _BASE | {"fused_orient_descriptor", "match_top2", "pnp_lo"},
-    "distributed": _BASE | {"fused_orient_descriptor", "match_top2", "pnp_lo"},
+                         "pnp_lo", "recover_pose"},
+    "ring": _BASE | {"fused_orient_descriptor", "match_top2", "pnp_lo", "recover_pose"},
+    "distributed": _BASE | {"fused_orient_descriptor", "match_top2", "pnp_lo",
+                            "recover_pose"},
 }
 
 
@@ -396,6 +405,10 @@ def check_path_launches(path, launches, gates):
         gates.check(launches["pnp_lo"] == PATH_K11[path],
                     f"K11 launched {launches['pnp_lo']} times on the {path} path, "
                     f"not {PATH_K11[path]}")
+    if path in PATH_K12:
+        gates.check(launches["recover_pose"] == PATH_K12[path],
+                    f"K12 launched {launches['recover_pose']} times on the {path} path, "
+                    f"not {PATH_K12[path]}")
 
 
 def run_pairs(img1, img2, K, cfg, f, seeds, dev):
@@ -832,7 +845,8 @@ KERNEL_PLAIN = {name: ("sfm_tpu_torch." + mod, wrapper, twin) for name, mod, wra
     ("match_top2", "ops.match", "match_top2", "match_top2_plain"),
     ("refine_relative_pose", "geometry.refine", "refine_relative_pose",
      "refine_relative_pose_plain"),
-    ("pnp_lo", "geometry.pnp", "pnp_lo", "pnp_lo_plain"))}
+    ("pnp_lo", "geometry.pnp", "pnp_lo", "pnp_lo_plain"),
+    ("recover_pose", "geometry.pose", "recover_pose", "recover_pose_plain"))}
 
 
 def _rebind(old, new):
@@ -854,8 +868,8 @@ def capture(*names):
     """Keep, for each kernel in ``names`` (every kernel if none), the
     inputs and outputs of its wrapper's first call inside the block,
     cloned (K10: its first two, the probe's and a refine round's; K11:
-    its last, the last frame registered).  Yields {kernel: [(args,
-    kwargs, outputs)]}."""
+    its last, the last frame registered; K12: its first three).  Yields
+    {kernel: [(args, kwargs, outputs)]}."""
     import importlib
 
     import torch
@@ -874,7 +888,7 @@ def capture(*names):
     for name in names or KERNEL_PLAIN:
         mod, wrapper, _ = KERNEL_PLAIN[name]
         fn = getattr(importlib.import_module(mod), wrapper)
-        keep = 2 if name == "refine_relative_pose" else 1
+        keep = {"refine_relative_pose": 2, "recover_pose": 3}.get(name, 1)
 
         def wrapped(*args, _fn=fn, _name=name, _keep=keep, **kwargs):
             out = _fn(*args, **kwargs)
@@ -1045,11 +1059,39 @@ def _hold_lo(plain, args, kwargs, out):
                                f"{c_k} vs {c_p}")
 
 
+def _hold_pose(plain, args, kwargs, out):
+    """K12 and the plain f32 route, each against the plain route in
+    float64: the same votes (as a set: the paths' E have two equal
+    singular values, so the rounding orders the candidates), the
+    winner's R and t within 1e-5 of the plain route's and no further
+    from float64 than it plus 1e-5, front / finite flips on <= 0.1% of
+    the rows, the points' median relative gap <= 1e-5 where both are
+    finite."""
+    import torch
+
+    p = plain(*args, **kwargs)
+    p64 = plain(*map(_to64, args), **{k: _to64(v) for k, v in kwargs.items()})
+    gap = lambda a, b: max(float((a["R"].double() - b["R"].double()).abs().max()),
+                           float((a["t"].double() - b["t"].double()).abs().max()))
+    n = out["front"].shape[0]
+    flips = int((out["front"] != p["front"]).sum() + (out["finite"] != p["finite"]).sum())
+    both = out["finite"] & p["finite"]
+    Xk, Xp = out["points"][both].double(), p["points"][both].double()
+    rel = float(((Xk - Xp).norm(dim=1) / Xp.norm(dim=1).clamp(min=1e-30)).median()) \
+        if bool(both.any()) else 0.0
+    ok = (torch.equal(out["votes"].sort().values, p["votes"].sort().values)
+          and gap(out, p) <= 1e-5 and gap(out, p64) <= gap(p, p64) + 1e-5
+          and flips <= 1e-3 * n and rel <= 1e-5)
+    return gap(out, p), None if ok else (
+        f"votes {out['votes'].tolist()} vs {p['votes'].tolist()}, R/t gap {gap(out, p)} "
+        f"(float64: {gap(out, p64)} vs {gap(p, p64)}), {flips} flips of {n}, points {rel}")
+
+
 HOLDS = {"scale_up": _hold_close, "base_chain": _hold_chain, "detect_maps": _hold_k3,
          "fused_orient_descriptor": _hold_fused, "fused_orient_descriptor_win": _hold_fused,
          "descriptor_sample": _hold_desc, "orientation_histogram_sample": _hold_hist,
          "match_top2": _hold_match, "refine_relative_pose": _hold_refine,
-         "pnp_lo": _hold_lo}
+         "pnp_lo": _hold_lo, "recover_pose": _hold_pose}
 
 
 def hold_kernels(calls, gates, where):
@@ -1860,7 +1902,7 @@ def main() -> int:
     launches["upscale_window"] = win["launches"]
     held["upscale_window"] = hold_kernels(calls, gates, "up-scale sample_window=True")
     cli_res, launches["cli"] = cli_phase(pair, rpair, gates, dev)
-    with capture("pnp_lo") as calls:
+    with capture("pnp_lo", "recover_pose") as calls:
         seq_res, launches["sequence"] = sequence_phase(gates, dev)
     held["sequence"] = hold_kernels(calls, gates, "sequence, the last frame registered")
     ring_res, launches["ring"] = ring_phase(gates, dev)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times and bounds of the port's hand-written kernels (K1-K11) on one
+"""Times and bounds of the port's hand-written kernels (K1-K12) on one
 card, for one or more checkouts of the repository: the source of
 PERF.md §6's table.
 
@@ -20,7 +20,7 @@ kernels' resident blocks per SM where the tree reports them, then one
 record per row:
 
 - ``ms``: CUDA-event milliseconds per call, the mean of 20 after 3
-  warm-ups (of 5 after 1 for K10, K11 and ``ransac_pnp``);
+  warm-ups (of 5 after 1 for K10, K11, K12 and ``ransac_pnp``);
   ``device_ms``: the same calls queued behind a spin kernel, so the
   events bracket device work only;
 - ``launches``: the launches of one call: PyTorch's device operations
@@ -69,7 +69,10 @@ rotation pair's first image, a 1920 x 2560 base):
   (``pnp_lo``) alone where the tree has it, on the LO inputs
   ``ransac_pnp`` hands it, at the sequence cell's shape: 15,360 rows (3
   frames x 5,120 slots), 40% of them live, 1,024 hypotheses, the prior
-  winning (``pnp_problem``).
+  winning (``pnp_problem``);
+- K12 (``recover_pose``, however the tree runs it: the plain route
+  before K12) at 512, 2,560 and 5,120 rows (the bench pair's refine rounds and final vote, the
+  sequence bootstrap) with 0/1 weights (``pose_problem``).
 
 Prints one JSON line per tree, then whether the digests agree across
 the trees (and which differ) and whether K9's equal K4's in every tree,
@@ -134,6 +137,16 @@ LO_NORMAL_OPS = 203
 LO_GRAM_OPS = 132
 LO_COUNT_OPS = 56
 LO_FINAL_OPS = 28
+
+
+# Operations per row and branch of K12, counted from csrc/pose.cu the
+# same way: the two DLT rows of the second view 16, the 4 x 4 Gram 112
+# (16 entries of a product and three FMAs), a Jacobi rotation 85 (its
+# (c, s) 13, then 4 x 6 on A's columns, A's rows and V's columns) x 6 a
+# sweep x 8 sweeps, the eigenvector's pick, norm and division 19, X,
+# finite and the depths 21.  A call needs it for 4 branches of n rows
+# (the kernel computes the winner's rows twice; the bound does not).
+POSE_ROW_OPS = 16 + 112 + 85 * 6 * 8 + 19 + 21
 
 
 def lo_ops(n: int, iters: int, rounds: int = 3) -> int:
@@ -257,6 +270,8 @@ def record(fn, plain=None, work=None, peak=F32_FLOPS, library=None, reps=20, war
     from sfm_tpu_torch.utils.precision import f32_precision
 
     out = fn()
+    if isinstance(out, dict):
+        out = tuple(out.values())
     rec = {"digest": digest(out if isinstance(out, (tuple, list)) else (out,)),
            "ms": cuda_ms(fn, reps, warmup), "device_ms": device_ms(fn, reps, warmup)}
     rec["launches"], _ = profile_launches(fn)
@@ -283,7 +298,7 @@ def rows(dev, k6_only: bool) -> dict:
 
     import synthetic_pair as scene
     from path_configs import slice_config, upscale_config
-    from sfm_tpu_torch.geometry import pnp, refine
+    from sfm_tpu_torch.geometry import pnp, pose, refine
     from sfm_tpu_torch.ops import compact, detect, match, sample
     from sfm_tpu_torch.ops import pyramid as pyr
     from sfm_tpu_torch.sift import frontend, orient, pyramid
@@ -476,6 +491,19 @@ def rows(dev, k6_only: bool) -> dict:
             lambda: pnp.pnp_lo(*a, **k), lambda: pnp.pnp_lo_plain(*a, **k),
             (n * (24 + 1 + 1) + 4 * (9 + 3 + 9 + 3 + 1), lo_ops(n, k["refine_iters"])),
             reps=5, warmup=1)
+
+    # K12 (recover_pose, however the tree runs it: the plain route before
+    # K12) at the bench pair's two sizes (the refine rounds' 512 vote
+    # rows, the final vote's 2,560) and the sequence bootstrap's 5,120
+    # slots, with 0/1 weights as the paths hand them.
+    plain = getattr(pose, "recover_pose_plain", None)
+    for n in (512, 2560, 5120):
+        E, x1, x2, w = (torch.as_tensor(a, device=dev) for a in scene.pose_problem(21, n)[:4])
+        out[f"K12 N {n}"] = record(
+            lambda: pose.recover_pose(E, x1, x2, weights=w),
+            plain and (lambda: plain(E, x1, x2, w)),
+            (n * (2 * 12 + 4 + 12 + 2) + 4 * (9 + 9 + 3 + 2 + 4), 4 * n * POSE_ROW_OPS),
+            reps=5, warmup=1)
     return out
 
 
@@ -541,7 +569,7 @@ def build_child() -> int:
         if "Compiling entry function" in line:
             keep = any(k in line for k in ("detect", "match", "fused", "descriptor",
                                            "orientation", "chain", "blur", "decim", "refine",
-                                           "pnp_lo"))
+                                           "pnp_lo", "recover_pose"))
         if (keep and ("entry" in line or "registers" in line or "spill" in line)
                 or "Performance Loss" in line):
             lines.append(line.strip())

@@ -37,10 +37,13 @@
 // (a row a lane) for its 8 solves; the Gram is summed as its four
 // symmetric 4 x 4 blocks.  Thread 0 solves the damped 6 x 6 system by
 // LU with partial pivoting, as solve_ex.  Plain f32: no TF32, no
-// fast-math intrinsics.
+// fast-math intrinsics; the 3 x 3 SVDs are linalg.cuh's, which round as
+// the plain route's svd3x3 does.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "linalg.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -107,10 +110,6 @@ __device__ __forceinline__ float det3(const float b[9]) {
          b[2] * (b[3] * b[7] - b[4] * b[6]);
 }
 
-__device__ __forceinline__ float norm3(const float v[3]) {
-  return sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
-}
-
 __device__ __forceinline__ void copy_pose(const Pose& a, Pose& b) {
 #pragma unroll
   for (int i = 0; i < 9; ++i) b.R[i] = a.R[i];
@@ -132,151 +131,10 @@ __device__ void so3_exp(const float w[3], float R[9]) {
   for (int i = 0; i < 9; ++i) R[i] = (i % 4 == 0 ? 1.f : 0.f) + a * K[i] + b * K2[i];
 }
 
-// The symmetric Jacobi rotation (c, s) of ops/linalg.py _jacobi_rotation.
-__device__ __forceinline__ void jacobi_rotation(float app, float aqq, float apq, float& c,
-                                                float& s) {
-  const bool small = fabsf(apq) <= 1e-36f;
-  const float tau = (aqq - app) / (2.f * (small ? 1.f : apq));
-  const float sg = tau > 0.f ? 1.f : (tau < 0.f ? -1.f : 0.f);
-  float t = sg / (fabsf(tau) + sqrtf(1.f + tau * tau));
-  if (tau == 0.f) t = 1.f;
-  c = 1.f / sqrtf(1.f + t * t);
-  s = t * c;
-  if (small) {
-    c = 1.f;
-    s = 0.f;
-  }
-}
-
-// u / |u| where |u| > 1e-12, else the fallback e0 (linalg._safe_unit).
-__device__ __forceinline__ void safe_unit_e0(float u[3]) {
-  const float n = norm3(u);
-  const bool ok = n > 1e-12f;
-  const float d = ok ? n : 1.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) u[i] = ok ? u[i] / d : (i == 0 ? 1.f : 0.f);
-}
-
-// ops/linalg.py svd3x3 (method "jacobi", 8 sweeps): E = U diag(s) V^T,
-// s descending, from 8 cyclic Jacobi sweeps over E^T E, U's first two
-// columns from E V / s, its third their cross product, V's third column
-// turned so that E v2 aligns with u2.
-__device__ void svd3x3(const float E[9], float U[9], float s[3], float V[9]) {
-  float A[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      A[3 * i + k] = E[i] * E[k] + E[3 + i] * E[3 + k] + E[6 + i] * E[6 + k];
-  float S[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int k = 0; k < 3; ++k) S[3 * i + k] = 0.5f * (A[3 * i + k] + A[3 * k + i]);
-  float W[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
-  for (int sweep = 0; sweep < 8; ++sweep) {
-#pragma unroll
-    for (int pq = 0; pq < 3; ++pq) {
-      const int p = pq == 2 ? 1 : 0, q = pq == 0 ? 1 : 2;
-      float c, sn;
-      jacobi_rotation(S[4 * p], S[4 * q], S[3 * p + q], c, sn);
-      float cp[3], cq[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        cp[i] = S[3 * i + p];
-        cq[i] = S[3 * i + q];
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        S[3 * i + p] = c * cp[i] - sn * cq[i];
-        S[3 * i + q] = sn * cp[i] + c * cq[i];
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        cp[j] = S[3 * p + j];
-        cq[j] = S[3 * q + j];
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        S[3 * p + j] = c * cp[j] - sn * cq[j];
-        S[3 * q + j] = sn * cp[j] + c * cq[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        cp[i] = W[3 * i + p];
-        cq[i] = W[3 * i + q];
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        W[3 * i + p] = c * cp[i] - sn * cq[i];
-        W[3 * i + q] = sn * cp[i] + c * cq[i];
-      }
-    }
-  }
-  // Eigenvalues ascending by a stable sort, then flipped: descending,
-  // equal ones in reverse index order.
-  const float w[3] = {S[0], S[4], S[8]};
-  int o[3] = {0, 1, 2};
-#pragma unroll
-  for (int i = 1; i < 3; ++i)
-#pragma unroll
-    for (int j = i; j > 0; --j)
-      if (w[o[j]] < w[o[j - 1]]) {
-        const int tmp = o[j];
-        o[j] = o[j - 1];
-        o[j - 1] = tmp;
-      }
-  int d[3] = {o[2], o[1], o[0]};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    s[k] = sqrtf(fmaxf(w[d[k]], 0.f));
-#pragma unroll
-    for (int i = 0; i < 3; ++i) V[3 * i + k] = W[3 * i + d[k]];
-  }
-  // U (linalg._orthonormal_u_from).
-  float u0[3], u1[3], u2[3];
-  const float s0 = fmaxf(s[0], 1e-20f);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    u0[i] = (E[3 * i] * V[0] + E[3 * i + 1] * V[3] + E[3 * i + 2] * V[6]) / s0;
-    u1[i] = E[3 * i] * V[1] + E[3 * i + 1] * V[4] + E[3 * i + 2] * V[7];
-  }
-  safe_unit_e0(u0);
-  const float dot = u1[0] * u0[0] + u1[1] * u0[1] + u1[2] * u0[2];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) u1[i] = u1[i] - dot * u0[i];
-  const float n1 = norm3(u1);
-  const bool ok1 = n1 > 1e-12f;
-  const float pa[3] = {-u0[1], u0[0], 0.f}, pb[3] = {0.f, -u0[2], u0[1]};
-  const float na = norm3(pa), nb = norm3(pb);
-  const bool use_a = na > 0.5f;
-  const float dn = ok1 ? n1 : 1.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    u1[i] = ok1 ? u1[i] / dn : (use_a ? pa[i] / fmaxf(na, 1e-12f) : pb[i] / fmaxf(nb, 1e-12f));
-  u2[0] = u0[1] * u1[2] - u0[2] * u1[1];
-  u2[1] = u0[2] * u1[0] - u0[0] * u1[2];
-  u2[2] = u0[0] * u1[1] - u0[1] * u1[0];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    U[3 * i] = u0[i];
-    U[3 * i + 1] = u1[i];
-    U[3 * i + 2] = u2[i];
-  }
-  // linalg._align_v2.
-  float dv = 0.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    dv += (E[3 * i] * V[2] + E[3 * i + 1] * V[5] + E[3 * i + 2] * V[8]) * u2[i];
-  const float sg = dv < 0.f ? -1.f : 1.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) V[3 * i + 2] *= sg;
-}
-
 // Nearest rotation, R = U diag(1, 1, det(U V^T)) V^T (linalg.so3_project).
 __device__ void so3_project(const float M[9], float R[9]) {
   float U[9], s[3], V[9], UV[9];
-  svd3x3(M, U, s, V);
+  linalg::svd3x3(M, 8, U, s, V);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -588,7 +446,7 @@ __device__ void dlt_pose(Shared& sh) {
   for (int i = 0; i < 12; ++i) P[i] *= sg;
   const float Mp[9] = {P[0], P[1], P[2], P[4], P[5], P[6], P[8], P[9], P[10]};
   float U[9], s[3], V[9];
-  svd3x3(Mp, U, s, V);
+  linalg::svd3x3(Mp, 8, U, s, V);
   const float scale = fmaxf((s[0] + s[1] + s[2]) / 3.f, 1e-12f);
 #pragma unroll
   for (int i = 0; i < 9; ++i) M[i] = Mp[i] / scale;

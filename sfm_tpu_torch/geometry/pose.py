@@ -1,6 +1,17 @@
 """Pose recovery from an essential matrix (counterpart of
 ``sfm_tpu/geometry/pose.py``: ``pose_candidates``, ``align_candidates``,
-``recover_pose`` and the translation re-vote ``cheirality_t_vote``)."""
+``recover_pose`` and the translation re-vote ``cheirality_t_vote``).
+
+:func:`recover_pose` sends float32 CUDA inputs to K12
+(``csrc/pose.cu``): the Jacobi SVD of E, the four branches, every row's
+Jacobi DLT under every branch, the vote and its first maximum in one
+launch that never waits on the host.  Everything else (CPU tensors,
+float64) takes :func:`recover_pose_plain`, ~4.2k PyTorch launches and 7
+host syncs a call on the card; it is also the kernel's yardstick.  The
+kernel rounds each operation as the plain route does, so the two differ
+only where cuBLAS's small products and PyTorch's reductions sum in
+another order than the kernel's (``csrc/linalg.cuh``).
+"""
 
 from __future__ import annotations
 
@@ -10,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from sfm_tpu_torch.ops import linalg
+from sfm_tpu_torch.ops import _cuda, linalg
 from sfm_tpu_torch.geometry import triangulate as tri
 from sfm_tpu_torch.utils.precision import f32_matmul
 
@@ -47,15 +58,51 @@ def align_candidates(E, R_ref, t_ref, *, sweeps: int = 8):
     return Rs.index_select(0, best)[0], ts.index_select(0, best)[0]
 
 
-@f32_matmul
 def recover_pose(E, x1, x2, weights=None, *, sweeps: int = 8):
     """Cheirality-correct (R, t) among the four candidates of E [3, 3].
 
     Triangulates every correspondence against all four candidates and
     takes the argmax of the (weighted) positive-depth vote.  Returns a
     dict with R, t, index, votes [4], points [N, 3], front [N] and
-    finite [N] of the winner.
+    finite [N] of the winner.  K12 for float32 CUDA inputs,
+    :func:`recover_pose_plain` for the rest.
     """
+    if x1.is_cuda and x1.dtype == torch.float32:
+        return _recover_pose_kernel(E, x1, x2, weights, sweeps)
+    return recover_pose_plain(E, x1, x2, weights, sweeps=sweeps)
+
+
+def _recover_pose_kernel(E, x1, x2, weights, sweeps):
+    """K12 on the current stream; allocates its outputs, does not wait."""
+    dev = x1.device
+    n = x1.shape[0]
+    E, x1, x2 = (v.contiguous() for v in (E, x1, x2))
+    _cuda.require(E, "E", torch.float32, (3, 3), dev)
+    _cuda.require(x1, "x1", torch.float32, (n, 3), dev)
+    _cuda.require(x2, "x2", torch.float32, (n, 3), dev)
+    if weights is not None:
+        weights = weights.to(torch.float32).contiguous()
+        _cuda.require(weights, "weights", torch.float32, (n,), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {"R": torch.empty((3, 3), **f32), "t": torch.empty(3, **f32),
+           "index": torch.empty((), dtype=torch.int64, device=dev),
+           "votes": torch.empty(4, **f32), "points": torch.empty((n, 3), **f32),
+           "front": torch.empty(n, dtype=torch.bool, device=dev),
+           "finite": torch.empty(n, dtype=torch.bool, device=dev)}
+    code = _cuda.library().lib.sfm_recover_pose(
+        E.data_ptr(), x1.data_ptr(), x2.data_ptr(),
+        0 if weights is None else weights.data_ptr(), n, max(sweeps, 0),
+        *(v.data_ptr() for v in out.values()), _cuda.stream_ptr(dev))
+    _cuda.check(code, "recover_pose")
+    _cuda.launched("recover_pose")
+    return out
+
+
+@f32_matmul
+def recover_pose_plain(E, x1, x2, weights=None, *, sweeps: int = 8):
+    """:func:`recover_pose` in PyTorch, any device and dtype: the Jacobi
+    ``svd3x3`` of E, then ``triangulate``'s Jacobi DLT of every row
+    against the four candidates as one [4, N] batch."""
     Rs, ts = pose_candidates(E, sweeps=sweeps)
     eye = torch.eye(3, dtype=E.dtype, device=E.device).expand(Rs.shape)
     P1 = tri.make_projection(eye, torch.zeros_like(ts))

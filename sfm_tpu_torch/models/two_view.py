@@ -7,12 +7,13 @@ translation re-vote rounds -> cheirality vote -> triangulation.
 PyTorch runs eagerly, so the JAX package's two jitted programs become
 plain function calls.  Selections use ``torch.where`` and counts stay
 on the device.  On the card each ``refine.refine_relative_pose`` call
-(the probe, each refine and re-vote round) is one K10 launch that
-waits on nothing, but the geometry still blocks on the host a few dozen
-times a bench pair: each small constant made on the card from a Python
-list (``pose.pose_candidates``, ``ops/linalg.project_to_essential``)
-and each candidate picked by a 0-d index tensor (``pose.recover_pose``,
-the probe start, the bank's best) waits for the card
+(the probe, each refine and re-vote round) is one K10 launch and each
+``pose.recover_pose`` call (each round's vote, the final one) one K12
+launch, neither waiting on anything, but the geometry still blocks on
+the host about fifteen times a bench pair: each small constant made on
+the card from a Python list (``pose.pose_candidates``,
+``ops/linalg.project_to_essential``) and each candidate picked by a 0-d
+index tensor (the probe start, the bank's best) waits for the card
 (``utils/timing``'s ``host_syncs`` counts them).
 """
 

@@ -41,7 +41,7 @@ LAUNCHES = {"base_chain": 0, "scale_up": 0, "detect_maps": 0,
             "fused_orient_descriptor": 0, "descriptor_sample": 0,
             "match_top2": 0, "orientation_histogram_sample": 0,
             "fused_orient_descriptor_win": 0, "refine_relative_pose": 0,
-            "pnp_lo": 0}
+            "pnp_lo": 0, "recover_pose": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,6 +96,9 @@ _SIGNATURES = {
     # x, X, mask, R0, t0, n, iters, threshold, gates (host floats),
     # rounds, huber_delta, rows (scratch), R, t, count, inliers, stream
     "sfm_pnp_lo": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _F, _P, _P, _P, _P, _P, _P),
+    # E, x1, x2, weights (NULL: a count), n, sweeps, R, t, index (int64),
+    # votes, points, front, finite, stream
+    "sfm_recover_pose": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

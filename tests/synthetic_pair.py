@@ -143,6 +143,42 @@ def pnp_problem(seed, n, live, prior_wins, n_hyps=256, noise=1e-3, prior_deg=0.1
     return f32(x), f32(X), f32(R_init), f32(t_init), mask, sets.astype(np.int64)
 
 
+def pose_problem(seed, n, behind=0.0, s1=1.0, outliers=0.1):
+    """A scene for the cheirality vote of ``recover_pose``: n
+    correspondences in normalized coordinates (depths 4-8, a unit
+    baseline, 5e-4 noise on both views), of which the first
+    ``round(behind * n)`` see points behind both cameras, which vote for
+    the true rotation with -t (``behind=0.5``, even n: an exact tie
+    between those two branches), and a share ``outliers`` of the rest
+    uniform noise in x2.  E = U diag(1, s1, 0) V^T from an SVD of the
+    true [t]x R: s1 = 1 is the essential matrix itself, whose two equal
+    singular values leave the basis of their plane, and so the order of
+    the four candidates, to the rounding; s1 < 1 fixes that order and
+    keeps the candidates; s1 -> 0 is a near-rank-1 E.  Returns float32
+    (E [3, 3], x1 [n, 3], x2 [n, 3]), 0/1 weights [n] (outliers and 5%
+    of the rest 0) and real weights uniform in (0.2, 1)."""
+    rng = np.random.default_rng(seed)
+    R = _rot(rng.normal(size=3), rng.uniform(0.05, 0.4))
+    t = rng.normal(size=3)
+    t /= np.linalg.norm(t)
+    X = rng.uniform([-1, -1, 4.0], [1, 1, 8.0], size=(n, 3))
+    k = int(round(behind * n))
+    X[:k] = -X[:k]
+    Xc = X @ R.T + t
+    x1, x2 = X / X[:, 2:3], Xc / Xc[:, 2:3]
+    x1[:, :2] += rng.normal(scale=5e-4, size=(n, 2))
+    x2[:, :2] += rng.normal(scale=5e-4, size=(n, 2))
+    bad = np.zeros(n, bool)
+    bad[k + rng.permutation(n - k)[:int(outliers * (n - k))]] = True
+    x2[bad, :2] = rng.uniform(-0.3, 0.3, size=(int(bad.sum()), 2))
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    U, _, Vt = np.linalg.svd(tx @ R)
+    E = U @ np.diag([1.0, s1, 0.0]) @ Vt
+    f32 = lambda a: np.asarray(a, np.float32)
+    w01 = ~bad & (rng.random(n) > 0.05)
+    return f32(E), f32(x1), f32(x2), f32(w01), f32(rng.uniform(0.2, 1.0, size=n))
+
+
 def write_pgm(path, img):
     """Write an [H, W] 0..255 float image as an 8-bit binary PGM (P5),
     rounded to the nearest level: the form the command-line drivers of

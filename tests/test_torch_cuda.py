@@ -32,7 +32,12 @@ converged poses wander along the cost's flat valley on rounding, so
 each is measured against the plain route in float64 and K10 may pass
 the plain f32 route's error there by 1e-4 relative (costs) and 1e-3 /
 2e-3 deg (poses after one / more steps); K11 (PnP's LO stage) likewise
-by 1e-4 deg in R and 5e-6 relative in t, with equal strict counts.
+by 1e-4 deg in R and 5e-6 relative in t, with equal strict counts.  K12
+(``recover_pose``) rounds each operation as its plain route does and
+differs only by cuBLAS's and the reductions' sum orders: equal 0/1
+votes, the winner's pose within 1e-5, the points' median gap within
+1e-5 relative (its test says where the order of the four candidates is
+the rounding's own).
 """
 
 import dataclasses
@@ -42,7 +47,8 @@ import numpy as np
 import pytest
 import torch
 
-from synthetic_pair import pnp_problem, pose_errors_deg, refine_problem, synthetic_pair
+from synthetic_pair import (pnp_problem, pose_errors_deg, pose_problem, refine_problem,
+                            synthetic_pair)
 
 pytestmark = pytest.mark.cuda
 
@@ -1548,3 +1554,170 @@ def test_pnp_lo_kernel_checks_its_inputs(dev):
     _cuda.reset_launches()
     out = pnp.pnp_lo(x.double(), X.double(), mask, R_init.double(), t_init.double(), **kw)
     assert out[0].dtype == torch.float64 and _cuda.LAUNCHES["pnp_lo"] == 0
+
+
+def _captured_pose_calls(dev, monkeypatch, path_scene, path):
+    """The ``recover_pose`` calls of a path on the card, as (args,
+    kwargs): the bench pair's three (``two_view_pipeline`` at bench.py's
+    config with seed 0: the two refine rounds' on the 512 vote rows, the
+    final one on all 2,560) or the sequence bootstrap's two (on frame
+    0's uncompacted keypoint slots; ``run_incremental`` on the first 3
+    frames of the 576 x 720 arc at the CLI's defaults)."""
+    from path_configs import slice_config
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
+    from sfm_tpu_torch.geometry import pose
+    from sfm_tpu_torch.models import incremental, two_view
+    from synthetic_sequence import synthetic_sequence
+
+    seen = []
+    fn = pose.recover_pose
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(pose, "recover_pose", spy)
+    if path == "bench pair":
+        scene, _ = path_scene("bench")
+        img1, img2, K = (torch.as_tensor(scene[k], device=dev) for k in ("img1", "img2", "K"))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        two_view.two_view_pipeline(img1, img2, K, gen, slice_config())
+    else:
+        seq = synthetic_sequence(576, 720, n_frames=3)
+        cfg = PipelineConfig(sift=SiftConfig(max_pts_per_octave=1024),
+                             ransac=RansacConfig(n_hyps=1024, threshold=3e-6))
+        incremental.run_incremental([torch.as_tensor(im, device=dev) for im in seq["images"]],
+                                    seq["K"], cfg, seed=0, ba_iters=2)
+    monkeypatch.setattr(pose, "recover_pose", fn)
+    return seen
+
+
+def _hold_pose(k, p, p64, n, exact_votes, order_fixed, tol):
+    """K12's result ``k`` against the plain f32 route's ``p`` and the
+    plain float64 route's ``p64`` (docstring below)."""
+    for name, v in p.items():
+        assert k[name].shape == v.shape and k[name].is_cuda, name
+        assert k[name].dtype == (torch.float32 if name == "votes" else v.dtype), name
+    kv, pv = k["votes"].cpu(), p["votes"].cpu()
+    if not order_fixed:   # the candidate order is the rounding's: compare the sets
+        kv, pv = kv.sort().values, pv.sort().values
+    else:
+        assert int(k["index"]) == int(p["index"])
+    if exact_votes:
+        assert torch.equal(kv, pv), (k["votes"], p["votes"])
+    else:
+        assert torch.allclose(kv, pv, rtol=1e-5, atol=1e-5), (k["votes"], p["votes"])
+    assert int(k["index"]) == int(torch.argmax(k["votes"]))
+    gap = lambda a, b: max(float((a["R"].double() - b["R"].double()).abs().max()),
+                           float((a["t"].double() - b["t"].double()).abs().max()))
+    assert gap(k, p) <= tol, (gap(k, p), tol)
+    assert gap(k, p64) <= gap(p, p64) + tol, (gap(k, p64), gap(p, p64), tol)
+    flips = int((k["front"] != p["front"]).sum() + (k["finite"] != p["finite"]).sum())
+    assert flips <= 1e-3 * n, flips
+    both = (k["finite"] & p["finite"]).cpu()
+    if bool(both.any()):
+        Xk, Xp = k["points"].cpu().double()[both], p["points"].cpu().double()[both]
+        rel = (Xk - Xp).norm(dim=1) / Xp.norm(dim=1).clamp(min=1e-30)
+        assert float(rel.median()) <= 1e-5, float(rel.median())
+        assert float((rel > 1e-4).double().mean()) <= 0.01, rel.max()
+
+
+@pytest.mark.parametrize("case", [
+    *(pytest.param(c, id="-".join(map(str, c))) for c in itertools.product(
+        [1, 7, 512, 2560, 5120], ["none", "0/1", "real"], [1.0, 0.5])),
+    pytest.param(("tie", "none", 0.5), id="tie-none-0.5"),
+    pytest.param(("rank1", "0/1", 1e-2), id="near-rank-1-0.01"),
+    *(pytest.param(("bench pair", i), id=f"bench pair-{i}") for i in range(3)),
+    *(pytest.param(("sequence bootstrap", i), id=f"sequence bootstrap-{i}") for i in range(2))])
+def test_recover_pose_kernel_matches_plain(dev, path_scene, monkeypatch, case):
+    """K12 against the plain route (``recover_pose_plain``: the Jacobi
+    ``svd3x3``, ``triangulate``'s [4, N] Jacobi batch, cuBLAS products,
+    PyTorch reductions), both in float32 on the card, each also measured
+    against the plain route in float64.  The kernel rounds each
+    operation as the plain route does; they differ where cuBLAS and the
+    reductions sum in another order (``csrc/linalg.cuh``).  So: 0/1 and
+    unit votes are equal, real-valued ones within 1e-5; the winner's R
+    and t lie within 1e-5 / s1 of the plain route's (s1 = E's second
+    singular value over its first: a near-rank-1 E's u1 is known to
+    ~1e-7 / s1) and no further from float64 than it plus that;
+    front / finite differ on at most 0.1% of the rows; where both are
+    finite, the points' median relative gap is <= 1e-5 and 99% lie
+    within 1e-4 (far points' w is small, and X = X_h / w).  An
+    essential E (s1 = 1, and every E the paths hand it) has two equal
+    singular values, whose plane's basis, and with it the order of the
+    four candidates, the rounding decides: there the votes are compared
+    as sets and the index by the winner's pose; with s1 < 1 the index
+    and the votes are equal as they stand, and on a tie between two
+    branches both take the first.  On the bench pair's three calls and
+    the sequence bootstrap's two, the paths' own inputs.  One launch a
+    call, and a call repeats bit for bit."""
+    from sfm_tpu_torch.geometry import pose
+    from sfm_tpu_torch.ops import _cuda
+
+    if case[0] in ("bench pair", "sequence bootstrap"):
+        calls = _captured_pose_calls(dev, monkeypatch, path_scene, case[0])
+        assert len(calls) == (3 if case[0] == "bench pair" else 2)
+        (E, x1, x2), kw = calls[case[1]][0], calls[case[1]][1]
+        w = kw.get("weights")
+        s1 = 1.0
+        if case[0] == "bench pair":
+            assert x1.shape[0] == (2560 if case[1] == 2 else 512)
+    else:
+        n, weights, s1 = case
+        behind = 0.0
+        if n == "tie":
+            n, behind = 600, 0.5
+        elif n == "rank1":
+            n = 2560
+        E, x1, x2, w01, wr = (torch.as_tensor(a, device=dev) for a in pose_problem(
+            n + int(100 * s1), n, behind=behind, s1=s1, outliers=0.0 if behind else 0.1))
+        w = {"none": None, "0/1": w01, "real": wr}[weights]
+    n = x1.shape[0]
+    _cuda.reset_launches()
+    k = pose.recover_pose(E, x1, x2, weights=w)
+    k2 = pose.recover_pose(E, x1, x2, weights=w)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["recover_pose"] == 2
+    assert all(torch.equal(k[name], k2[name]) for name in k)
+    p = pose.recover_pose_plain(E, x1, x2, w)
+    p64 = pose.recover_pose_plain(E.double(), x1.double(), x2.double(),
+                                  None if w is None else w.double())
+    assert _cuda.LAUNCHES["recover_pose"] == 2
+    exact = w is None or bool(((w == 0) | (w == 1)).all())
+    _hold_pose(k, p, p64, n, exact, s1 < 1.0, 1e-5 / s1)
+    if case[0] == "tie":
+        votes = k["votes"].tolist()
+        assert sorted(votes) == [0.0, 0.0, 300.0, 300.0]
+        assert int(k["index"]) == votes.index(300.0)
+
+
+def test_recover_pose_kernel_checks_its_inputs(dev):
+    """K12's wrapper refuses what the kernel does not take; float64 on
+    the card takes the plain route, without a launch; an empty set of
+    rows and E = 0 (every fallback of the SVD) give the plain route's
+    votes, branch and flags, and its poses and points within 1e-5."""
+    from sfm_tpu_torch.geometry import pose
+    from sfm_tpu_torch.ops import _cuda
+
+    E, x1, x2, w01, _ = (torch.as_tensor(a, device=dev) for a in pose_problem(0, 50))
+    with pytest.raises(ValueError):
+        pose.recover_pose(E, x1[:, :2].contiguous(), x2[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        pose.recover_pose(E[:2], x1, x2)
+    with pytest.raises(ValueError):
+        pose.recover_pose(E.double(), x1, x2)
+    with pytest.raises(ValueError):
+        pose.recover_pose(E, x1, x2, weights=w01[:49])
+    with pytest.raises(ValueError):
+        pose.recover_pose(E, x1, x2.cpu())
+    _cuda.reset_launches()
+    out = pose.recover_pose(E.double(), x1.double(), x2.double(), weights=w01.double())
+    assert out["R"].dtype == torch.float64 and _cuda.LAUNCHES["recover_pose"] == 0
+    for args in ((E, x1[:0], x2[:0]), (torch.zeros_like(E), x1, x2)):
+        k, p = pose.recover_pose(*args), pose.recover_pose_plain(*args)
+        for name in ("index", "votes", "front", "finite"):
+            assert torch.equal(k[name], p[name]), name
+        for name in ("R", "t", "points"):
+            assert torch.allclose(k[name], p[name], rtol=1e-5, atol=1e-6), name
+    assert _cuda.LAUNCHES["recover_pose"] == 2

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from helpers import rot, synthetic_two_view
+from synthetic_pair import pose_problem
 from sfm_tpu.config import PipelineConfig, RansacConfig
 from sfm_tpu.models import two_view as jtv
 from sfm_tpu.geometry import epipolar as jep
@@ -207,6 +208,64 @@ def test_refine_relative_pose_on_cpu_takes_the_plain_route(rng, monkeypatch):
         for a, b in zip(got, want):
             assert a.dtype == dtype and torch.equal(a, b)
     assert _cuda.LAUNCHES == before
+
+
+def test_recover_pose_on_cpu_takes_the_plain_route(monkeypatch):
+    """CPU tensors, float32 or float64, go to ``recover_pose_plain`` (the
+    route the JAX parity test above holds) and never reach the kernel
+    library; K12 is for float32 CUDA tensors alone."""
+    from sfm_tpu_torch.ops import _cuda
+
+    def no_library():
+        raise AssertionError("a CPU call reached the kernel library")
+
+    monkeypatch.setattr(_cuda, "library", no_library)
+    E, x1, x2, w01, _ = pose_problem(0, 200)
+    before = dict(_cuda.LAUNCHES)
+    for dtype in (torch.float32, torch.float64):
+        args = [T(a).to(dtype) for a in (E, x1, x2)]
+        for w in (None, T(w01).to(dtype)):
+            got = pose.recover_pose(*args, weights=w)
+            want = pose.recover_pose_plain(*args, weights=w)
+            assert got.keys() == want.keys()
+            for k in got:
+                assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+            assert got["R"].dtype == dtype and got["index"].dtype == torch.int64
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("s1", [1.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_recover_pose_takes_the_first_maximum_on_tied_votes(s1, dtype):
+    """Half the points behind both cameras vote for the true rotation
+    with -t as many times as the other half votes for the truth: the
+    two branches tie, and the lower index wins, as ``torch.argmax``
+    (and ``jnp.argmax``) takes it, whatever order the SVD's rounding
+    gives the candidates."""
+    E, x1, x2, _, _ = pose_problem(1, 300, behind=0.5, outliers=0.0, s1=s1)
+    p = pose.recover_pose(*(T(a).to(dtype) for a in (E, x1, x2)))
+    votes = p["votes"].tolist()
+    assert sorted(votes) == [0.0, 0.0, 150.0, 150.0]
+    assert int(p["index"]) == votes.index(150.0)
+    assert int(p["front"].sum()) == 150
+    Rs, ts = pose.pose_candidates(T(E).to(dtype))
+    i = int(p["index"])
+    assert torch.equal(p["R"], Rs[i]) and torch.equal(p["t"], ts[i])
+    j = votes.index(150.0, i + 1)
+    assert torch.equal(Rs[j], Rs[i]) and torch.equal(ts[j], -ts[i])
+
+
+def test_recover_pose_counts_like_all_ones_weights():
+    """``weights=None`` votes the count of rows in front of both cameras:
+    the same votes, branch and rows as weights of all ones."""
+    E, x1, x2, _, _ = pose_problem(2, 257)
+    args = [T(a) for a in (E, x1, x2)]
+    a = pose.recover_pose(*args)
+    b = pose.recover_pose(*args, weights=torch.ones(257))
+    assert a["votes"].dtype == b["votes"].dtype == torch.float32
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert float(a["votes"][a["index"]]) == int(a["front"].sum())
 
 
 def test_compaction_order_is_stable_partition(rng):

@@ -76,7 +76,7 @@ def test_kernel_argument_checks_reject_cpu_tensors():
                                    "descriptor_sample", "match_top2",
                                    "orientation_histogram_sample",
                                    "fused_orient_descriptor_win",
-                                   "refine_relative_pose", "pnp_lo"}
+                                   "refine_relative_pose", "pnp_lo", "recover_pose"}
 
 
 def test_zero_images_give_no_matches_and_finite_pose():
