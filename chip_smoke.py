@@ -65,7 +65,8 @@ Phases, each of which fails the run on any error:
    radial distortion k1 = -0.45) written as ``viff.000.ppm`` ...
    ``viff.036.ppm``, and the driver users run, ``python -m
    sfm_tpu_torch.tools.reconstruct_dino --dir DIR --turntable`` (its
-   ``main`` in-process), at its defaults: 512 points per octave, 1,024
+   ``main`` in-process, through the ring's entry point
+   ``models/turntable.py:reconstruct_ring``), at its defaults: 512 points per octave, 1,024
    hypotheses, 30 BA iterations; gated on r5's bar against the rendered
    ring (mean step within 0.2 degrees of 10, std <= 0.3, 360 +- 2
    degrees in all, <= 1.5 px) and against the JAX package's run on the
@@ -1351,12 +1352,12 @@ def env(name, value):
             os.environ[name] = old
 
 
-def run_turntable_driver(d, out, dump=None, **extra):
+def run_turntable_driver(d, out, dump=None):
     """``python -m sfm_tpu_torch.tools.reconstruct_dino --dir d --turntable
     --out out`` in-process, its stdout swallowed; ``dump`` sets
-    SFM_TPU_TT_DUMP, ``extra`` goes to run_incremental and
-    reconstruct_turntable (a ``timer``).  Returns (exit code, metrics,
-    PLY vertices, the TurntableResult, launches after the chain)."""
+    SFM_TPU_TT_DUMP.  Returns (exit code, metrics, PLY vertices, the
+    TurntableResult of the ring's entry point, launches after the
+    chain, the entry point's calls)."""
     import io
 
     from sfm_tpu_torch.models import incremental, turntable
@@ -1365,13 +1366,13 @@ def run_turntable_driver(d, out, dump=None, **extra):
     with contextlib.ExitStack() as stack:
         if dump is not None:
             stack.enter_context(env("SFM_TPU_TT_DUMP", dump))
-        chain = stack.enter_context(spy(incremental, "run_incremental", **extra))
-        ring = stack.enter_context(spy(turntable, "reconstruct_turntable", **extra))
+        chain = stack.enter_context(spy(incremental, "run_incremental"))
+        ring = stack.enter_context(spy(turntable, "reconstruct_ring"))
         stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
         rc = reconstruct_dino.main(["--dir", d, "--turntable", "--out", out])
     with open(out + ".metrics.json") as fh:
         m = json.load(fh)
-    return rc, m, _ply_vertices(out + ".ply"), ring[0][2], chain[0][3]
+    return rc, m, _ply_vertices(out + ".ply"), ring[0][2], chain[0][3], len(ring)
 
 
 def gate_ring_bar(m, gates, where):
@@ -1407,7 +1408,7 @@ def ring_phase(gates, dev):
         ring = synthetic_ring(576, 720, n_frames=RING_FRAMES, directory=d)
         dump = os.path.join(d, "free_ba.npz")
         _cuda.reset_launches()
-        rc, m, vertices, ttr, after_chain = run_turntable_driver(
+        rc, m, vertices, ttr, after_chain, entry_calls = run_turntable_driver(
             d, os.path.join(d, "ring"), dump=dump)
         launches = dict(_cuda.LAUNCHES)
         R, t, X, problem, delta = turntable.free_ba_problem(dump, dev)
@@ -1430,6 +1431,7 @@ def ring_phase(gates, dev):
     log(f"launches in the ring run: {launches} (K6: chain {r['k6_chain']}, ring tracks "
         f"{r['k6_tracks']})")
     gates.check(rc == 0, f"ring driver: exit code {rc}")
+    gates.check(entry_calls == 1, f"ring driver: {entry_calls} calls of reconstruct_ring")
     gate_ring_bar(m, gates, "ring driver")
     # The metrics JSON reports the result the run computed.
     gates.check(m["tt_tracks"] == r["tracks"] and m["tt_obs_kept"] == r["obs_kept"]
@@ -1831,7 +1833,7 @@ def dino(cfg, gates, dev):
         import tempfile
 
         with tempfile.TemporaryDirectory() as out:
-            rc, m, vertices, _, _ = run_turntable_driver(d, os.path.join(out, "dino"))
+            rc, m, vertices, *_ = run_turntable_driver(d, os.path.join(out, "dino"))
         log(f"dino --turntable: {m['poses_valid']} poses, step {m['tt_step_deg_mean']:.4f}"
             f" +- {m['tt_step_deg_std']:.4f} deg, total {m['tt_total_deg']} deg, "
             f"{m['tt_rms_px']} px, f {m['tt_f_px']}, k1 {m['tt_k1']}")

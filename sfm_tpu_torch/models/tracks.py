@@ -30,6 +30,7 @@ class TrackSet(NamedTuple):
     uv_pix: torch.Tensor    # [O, 2] pixel coords
     mask: torch.Tensor      # [O] bool
     n_tracks: int
+    slot: torch.Tensor      # [O] int64 keypoint slot in its frame
 
 
 def ring_pairs(n: int, gaps: Sequence[int] = (1,), wrap: bool = True):
@@ -44,12 +45,14 @@ def ring_pairs(n: int, gaps: Sequence[int] = (1,), wrap: bool = True):
 
 
 def build_tracks(feats, pairs, cfg, *, min_disparity_px: float = 1.5,
-                 min_len: int = 2) -> TrackSet:
+                 min_len: int = 2, matches: dict | None = None) -> TrackSet:
     """Union-find track building over the given frame pairs.
 
     A union that would put two observations of the SAME frame into one
     track is rejected (first link wins), the standard conflict rule.
-    The TrackSet lies on the features' device.
+    The TrackSet lies on the features' device.  ``matches`` (a dict),
+    where given, receives each pair's matches as the union-find read
+    them: (i, j) -> (index [K], valid [K]), numpy on the host.
     """
     parent: dict = {}
     frames: dict = {}   # root -> set of frames in its component
@@ -83,6 +86,8 @@ def build_tracks(feats, pairs, cfg, *, min_disparity_px: float = 1.5,
                             feats[i].keypoints.valid, feats[j].keypoints.valid,
                             cfg.match)
         mi, mv = torch.stack([m.index, m.valid.to(m.index.dtype)]).cpu().numpy()
+        if matches is not None:
+            matches[(i, j)] = (mi, mv.astype(bool))
         ok = mv.astype(bool) & valid[i] & valid[j][mi]
         disp = np.sqrt(((uv[i] - uv[j][mi]) ** 2).sum(1))
         ok &= disp > min_disparity_px
@@ -95,7 +100,7 @@ def build_tracks(feats, pairs, cfg, *, min_disparity_px: float = 1.5,
     groups: dict = {}
     for node in parent:
         groups.setdefault(find(node), []).append(node)
-    obs_cam, obs_pt, obs_uv = [], [], []
+    obs_cam, obs_pt, obs_uv, obs_slot = [], [], [], []
     pid = 0
     for members in groups.values():
         if len(members) < min_len:
@@ -104,6 +109,7 @@ def build_tracks(feats, pairs, cfg, *, min_disparity_px: float = 1.5,
             obs_cam.append(fr)
             obs_pt.append(pid)
             obs_uv.append(uv[fr][slot])
+            obs_slot.append(slot)
         pid += 1
     return TrackSet(
         cam_idx=torch.as_tensor(np.array(obs_cam, np.int64), device=dev),
@@ -111,6 +117,7 @@ def build_tracks(feats, pairs, cfg, *, min_disparity_px: float = 1.5,
         uv_pix=torch.as_tensor(np.array(obs_uv, np.float32).reshape(-1, 2), device=dev),
         mask=torch.ones((len(obs_cam),), dtype=torch.bool, device=dev),
         n_tracks=pid,
+        slot=torch.as_tensor(np.array(obs_slot, np.int64), device=dev),
     )
 
 

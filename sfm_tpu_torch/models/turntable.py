@@ -20,6 +20,15 @@ leaves the device inside them.  Every entry point runs with TF32 off
 (``f32_matmul``): reduced-precision matmuls cost the JAX package's
 turntable drive 9.92 +- 2.22 degrees per step where the true answer is
 10.00 +- 0.11 (NOTES_R5.md).
+
+``reconstruct_ring`` is the whole request: SIFT on every frame, the
+incremental chain, then ``reconstruct_turntable``.  Its spans:
+``turntable.run`` (outermost) > ``extract``, the chain's stages, then
+``tracks``, ``pinned_lm`` (> ``pinned_lm.triangulate``,
+``pinned_lm.jacobian``, ``pinned_lm.solve``), ``free_ba`` and ``snap``
+(> ``free_ba.prune``, the host's reads of the residuals, and
+``run_ba``'s own).  ``LM_ITERS`` counts the LM iterations run, pinned
+and free.
 """
 
 from __future__ import annotations
@@ -35,9 +44,16 @@ import torch
 from sfm_tpu_torch.geometry import lie
 from sfm_tpu_torch.geometry import triangulate as tri
 from sfm_tpu_torch.models import bundle_adjust as ba
+from sfm_tpu_torch.models import incremental
 from sfm_tpu_torch.models import tracks as tracks_mod
+from sfm_tpu_torch.sift import frontend
 from sfm_tpu_torch.utils import timing
 from sfm_tpu_torch.utils.precision import f32_matmul, f32_precision
+
+# LM iterations run in this process: "pinned" (refine_turntable's steps)
+# and "free" (run_ba's in the annealed free BA).  Each is a fixed count
+# per call, read on the host without a sync.
+LM_ITERS = {"pinned": 0, "free": 0}
 
 
 class TurntableModel(NamedTuple):
@@ -245,43 +261,48 @@ def refine_turntable(model: TurntableModel, cam_idx, pt_idx, uv_pix, mask, K, *,
 
     base, intr_p, keep = model, torch.zeros((n_par,), dtype=dt, device=dev), mask
     for round_i in range(tri_rounds):
-        R, t = turntable_poses(base, phases)
-        X, ok = tri.triangulate_tracks(R, t, cam_idx, pt_idx, undistort(intr_p), keep,
-                                       n_points)
-        rn = torch.linalg.vector_norm(residuals(intr_p, X, base), dim=1)
-        # Staged prune: generous on the first round (the chain-fitted
-        # init has tens-of-px residuals on real data), tight after.
-        thr = 6.0 * prune_px if round_i == 0 else prune_px
-        keep = mask & ok[pt_idx] & (rn < thr)
+        with timing.span("pinned_lm.triangulate"):
+            R, t = turntable_poses(base, phases)
+            X, ok = tri.triangulate_tracks(R, t, cam_idx, pt_idx, undistort(intr_p), keep,
+                                           n_points)
+            rn = torch.linalg.vector_norm(residuals(intr_p, X, base), dim=1)
+            # Staged prune: generous on the first round (the chain-fitted
+            # init has tens-of-px residuals on real data), tight after.
+            thr = 6.0 * prune_px if round_i == 0 else prune_px
+            keep = mask & ok[pt_idx] & (rn < thr)
 
         # Pose deltas restart at 0, intrinsics carry over.
         p = torch.cat([zeros5, intr_p[5:]])
         lam = torch.full((), 1e-3, dtype=dt, device=dev)
         cost = robust_cost(p, X, base, keep)
         for _ in range(iters):
-            r = residuals(p, X, base)
-            J = jac(p, X, base) * free
-            rn2 = torch.sum(r * r, dim=1)
-            w = torch.where(rn2 <= huber_px * huber_px, torch.ones_like(rn2),
-                            huber_px / torch.sqrt(torch.clamp(rn2, min=1e-24))) * keep
-            Jw = J * w[:, None, None]
-            G = torch.einsum("oki,okj->ij", Jw, J) + torch.diag(1.0 - free)
-            g = torch.einsum("oki,ok->i", Jw, r)
-            D = torch.diag(torch.clamp(torch.diagonal(G), min=1e-12))
-            dp = -torch.linalg.solve_ex(G + lam * D, g[:, None])[0][:, 0] * free
-            dp = torch.where(torch.isfinite(dp), dp, torch.zeros_like(dp))
-            c_new = robust_cost(p + dp, X, base, keep)
-            good = c_new < cost
-            p = torch.where(good, p + dp, p)
-            cost = torch.where(good, c_new, cost)
-            lam = torch.clamp(torch.where(good, lam * 0.3, lam * 6.0), 1e-8, 1e8)
+            LM_ITERS["pinned"] += 1
+            with timing.span("pinned_lm.jacobian"):
+                r = residuals(p, X, base)
+                J = jac(p, X, base) * free
+            with timing.span("pinned_lm.solve"):
+                rn2 = torch.sum(r * r, dim=1)
+                w = torch.where(rn2 <= huber_px * huber_px, torch.ones_like(rn2),
+                                huber_px / torch.sqrt(torch.clamp(rn2, min=1e-24))) * keep
+                Jw = J * w[:, None, None]
+                G = torch.einsum("oki,okj->ij", Jw, J) + torch.diag(1.0 - free)
+                g = torch.einsum("oki,ok->i", Jw, r)
+                D = torch.diag(torch.clamp(torch.diagonal(G), min=1e-12))
+                dp = -torch.linalg.solve_ex(G + lam * D, g[:, None])[0][:, 0] * free
+                dp = torch.where(torch.isfinite(dp), dp, torch.zeros_like(dp))
+                c_new = robust_cost(p + dp, X, base, keep)
+                good = c_new < cost
+                p = torch.where(good, p + dp, p)
+                cost = torch.where(good, c_new, cost)
+                lam = torch.clamp(torch.where(good, lam * 0.3, lam * 6.0), 1e-8, 1e8)
         base, intr_p = _params_to_model(p[:5], base), torch.cat([zeros5, p[5:]])
 
-    R, t = turntable_poses(base, phases)
-    X, ok = tri.triangulate_tracks(R, t, cam_idx, pt_idx, undistort(intr_p), keep,
-                                   n_points)
-    rn = torch.linalg.vector_norm(residuals(intr_p, X, base), dim=1)
-    keep = keep & ok[pt_idx] & (rn < prune_px)
+    with timing.span("pinned_lm.triangulate"):
+        R, t = turntable_poses(base, phases)
+        X, ok = tri.triangulate_tracks(R, t, cam_idx, pt_idx, undistort(intr_p), keep,
+                                       n_points)
+        rn = torch.linalg.vector_norm(residuals(intr_p, X, base), dim=1)
+        keep = keep & ok[pt_idx] & (rn < prune_px)
     rms = torch.sqrt(torch.sum(torch.where(keep, rn * rn, torch.zeros_like(rn)))
                      / torch.clamp(torch.sum(keep), min=1))
     return base, tuple(v[0] for v in intr_of(intr_p)), R, t, X, keep, rms
@@ -300,6 +321,11 @@ class TurntableResult(NamedTuple):
     rms_px: float
     step_deg: torch.Tensor  # [n-1] relative rotation per ring step
     total_deg: float        # total swept rotation incl. the wrap step
+    # The ring pairs' matches as build_tracks read them: (i, j) ->
+    # (index [K], valid [K]), numpy.
+    matches: dict
+    ba_obs: np.ndarray      # [O] the last run_ba's observations
+    chain: object = None    # reconstruct_ring's IncrementalResult
 
 
 def _steps_deg_np(R):
@@ -350,18 +376,29 @@ def _anneal_free_ba(R, t, cam_idx, pt_idx, uv_n, mask, n_tracks, f_px,
     by the LM damping, and pinning a camera whose init is off the true
     ring leaves a permanent seam at that camera.  The prune reads the
     residuals on the host once per stage (numpy ``keep`` and ``r``, as
-    in the JAX package)."""
+    in the JAX package).  ``run_ba`` runs in float64: the gauge's seven
+    directions are held by the damping alone, and in float32 their part
+    of each step and the accept test near the optimum are rounding
+    noise, so on some rings the LM stalled 1e-4 to 4e-4 above the float64
+    optimum of its own problem, the poses 0.1-0.3 degrees off (PERF.md
+    §6); the stages between run in the poses' float32.  Returns
+    (R, t, X, keep, r, the last stage's observation mask)."""
     mask_np = mask.cpu().numpy()
     keep = mask_np
-    X = r = None
+    X = r = problem = None
     for hub, pru in schedule:
-        X, problem, okm = _stage_problem(R, t, cam_idx, pt_idx, uv_n, mask_np, keep,
-                                         n_tracks, f_px, pru)
-        st, _costs = ba.run_ba(R, t, X, problem, iters=iters, huber_delta=hub / f_px)
-        R, t, X = st.R, st.t, st.X
-        r = _resid_px(R, t, X, cam_idx, pt_idx, uv_n, f_px)
-        keep = okm & (r < pru)
-    return R, t, X, keep, r
+        with timing.span("free_ba.prune"):
+            X, problem, okm = _stage_problem(R, t, cam_idx, pt_idx, uv_n, mask_np, keep,
+                                             n_tracks, f_px, pru)
+        LM_ITERS["free"] += iters
+        st, _costs = ba.run_ba(R.double(), t.double(), X.double(),
+                               problem._replace(uv=problem.uv.double()), iters=iters,
+                               huber_delta=hub / f_px)
+        R, t, X = (v.to(uv_n.dtype) for v in (st.R, st.t, st.X))
+        with timing.span("free_ba.prune"):
+            r = _resid_px(R, t, X, cam_idx, pt_idx, uv_n, f_px)
+            keep = okm & (r < pru)
+    return R, t, X, keep, r, problem.mask.cpu().numpy()
 
 
 def free_ba_problem(dump, device="cuda"):
@@ -440,7 +477,9 @@ def reconstruct_turntable(feats, R_chain, t_chain, K, cfg, *,
 
     with timing.span("tracks", timer=timer):
         pairs = tracks_mod.ring_pairs(n, gaps=gaps, wrap=wrap)
-        ts = tracks_mod.build_tracks(feats, pairs, cfg, min_len=min_track_len)
+        ring_matches = {}
+        ts = tracks_mod.build_tracks(feats, pairs, cfg, min_len=min_track_len,
+                                     matches=ring_matches)
     with timing.span("pinned_lm", timer=timer):
         cam_idx_np = ts.cam_idx.cpu().numpy()
         pt_idx_np = ts.pt_idx.cpu().numpy()
@@ -516,7 +555,7 @@ def reconstruct_turntable(feats, R_chain, t_chain, K, cfg, *,
                      cam_idx=cam_idx_np.astype(np.int32),
                      pt_idx=pt_idx_np.astype(np.int32), uv_nd=uv_nd.cpu().numpy(),
                      mask=ts.mask.cpu().numpy(), n_tracks=ts.n_tracks, f0=f0)
-        R, t, X, keep, r_px = _anneal_free_ba(
+        R, t, X, keep, r_px, ba_obs = _anneal_free_ba(
             R, t, ts.cam_idx, ts.pt_idx, uv_nd, ts.mask, ts.n_tracks, f0,
             FREE_BA_SCHEDULE, ba_iters)
     _dbg("free BA", R, r_px, keep)
@@ -525,7 +564,7 @@ def reconstruct_turntable(feats, R_chain, t_chain, K, cfg, *,
         phases = (2.0 * math.pi / n) * torch.arange(n, dtype=torch.float32, device=dev)
         for _ in range(snap_rounds):
             R_s, t_s = turntable_poses(fit_turntable(R, t, n_ring=n), phases)
-            R, t, X, keep, r_px = _anneal_free_ba(
+            R, t, X, keep, r_px, ba_obs = _anneal_free_ba(
                 R_s, t_s, ts.cam_idx, ts.pt_idx, uv_nd, ts.mask, ts.n_tracks,
                 f0, SNAP_SCHEDULE, ba_iters)
             _dbg("snap+BA", R, r_px, keep)
@@ -539,4 +578,39 @@ def reconstruct_turntable(feats, R_chain, t_chain, K, cfg, *,
     return TurntableResult(
         model=model, f=f_est, k1=k1, k2=k2, R=R, t=t, X=X,
         keep=torch.as_tensor(keep, device=dev), tracks=ts, rms_px=rms_px,
-        step_deg=torch.as_tensor(steps.astype(np.float32)), total_deg=total)
+        step_deg=torch.as_tensor(steps.astype(np.float32)), total_deg=total,
+        matches=ring_matches, ba_obs=ba_obs)
+
+
+@f32_matmul
+def reconstruct_ring(images, K, cfg, *, feats=None, seed: int = 0,
+                     chain_ba_iters: int = 30, local_ba_iters: int = 5, minimal_sets=None,
+                     device=None, timer=None, **ring) -> TurntableResult:
+    """The turntable ring from its frames: SIFT on every frame (unless
+    ``feats``, one SiftResult per frame, is given), the incremental
+    chain (``run_incremental`` with ``seed``, ``chain_ba_iters`` global
+    and ``local_ba_iters`` local BA iterations, and ``minimal_sets``, its
+    RANSAC draws or callables that draw them), then ``reconstruct_turntable`` (``ring``: its
+    keywords) from the chain's poses.  Returns the TurntableResult with
+    ``chain`` the chain's IncrementalResult.
+
+    The whole is the span ``turntable.run``; ``timer`` (a
+    ``utils.timing.StageTimer``) records the synchronized stages:
+    extract, the chain's (match, bootstrap, register, local_ba,
+    global_ba) and the turntable's (tracks, pinned_lm, free_ba, snap).
+    """
+    with timing.span("turntable.run"):
+        dev = incremental._resolve_device(images, feats, device, None)
+        with timing.span("extract", timer=timer):
+            if feats is None:
+                feats = [frontend.extract_sift(
+                    torch.as_tensor(im, dtype=torch.float32, device=dev), cfg.sift)
+                    for im in images]
+        chain = incremental.run_incremental(
+            images, K, cfg, seed=seed, ba_iters=chain_ba_iters,
+            local_ba_iters=local_ba_iters, feats=feats, device=dev, timer=timer,
+            minimal_sets=minimal_sets)
+        st = chain.state
+        res = reconstruct_turntable(feats, st.R, st.t, K, cfg, pose_valid=st.pose_valid,
+                                    timer=timer, **ring)
+    return res._replace(chain=chain)

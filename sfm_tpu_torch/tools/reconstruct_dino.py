@@ -10,8 +10,9 @@ pipeline and reports turntable-consistency metrics:
     cameras lie on a circle; dimensionless, gauge-invariant)
   * mean reprojection error over all retained observations
 
-With --turntable, the circular-motion pipeline (models/turntable.py)
-takes over: model-free ring tracks with wrap loop-closure edges,
+With --turntable, the ring's entry point (models/turntable.py:
+reconstruct_ring) runs the chain and the circular-motion pipeline:
+model-free ring tracks with wrap loop-closure edges,
 uniform-phase turntable init, annealed variable-projected LM with
 shared (f, k1) estimation, then annealed UNCONSTRAINED bundle
 adjustment plus a snap-to-ring re-polish.
@@ -169,17 +170,15 @@ def _run(args) -> int:
     cx = args.cx if args.cx >= 0 else w / 2
     cy = args.cy if args.cy >= 0 else h / 2
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
-    res = incremental.run_incremental(
-        imgs, K, cfg, ba_iters=args.ba_iters, seed=args.seed, feats=feats, device=dev)
-    st = res.state
-    elapsed = time.time() - t0
-
     tt_metrics = {}
     if args.turntable:
         from sfm_tpu_torch.models import turntable as tt
 
-        ttr = tt.reconstruct_turntable(feats, st.R, st.t, K, cfg,
-                                       pose_valid=st.pose_valid)
+        ttr = tt.reconstruct_ring(imgs, K, cfg, feats=feats, seed=args.seed,
+                                  chain_ba_iters=args.ba_iters, device=dev)
+        res = ttr.chain
+        st = res.state
+        elapsed = time.time() - t0
         sd = ttr.step_deg.cpu().numpy()
         tt_metrics = {
             "turntable": True,
@@ -200,6 +199,11 @@ def _run(args) -> int:
         st = st._replace(
             R=ttr.R, t=ttr.t, X=ttr.X, X_valid=tv, n_points=tv.sum(),
             pose_valid=torch.ones((len(idxs),), dtype=torch.bool, device=dev))
+    else:
+        res = incremental.run_incremental(
+            imgs, K, cfg, ba_iters=args.ba_iters, seed=args.seed, feats=feats, device=dev)
+        st = res.state
+        elapsed = time.time() - t0
 
     R = st.R.cpu().numpy()
     t = st.t.cpu().numpy()

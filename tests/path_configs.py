@@ -1,7 +1,7 @@
 """The main paths' configurations and the card's line, shared by the
 card's harnesses (``chip_smoke.py``, ``kernel_ab.py``,
 ``profile_port.py``) and the port's tests: bench.py's configuration,
-tools/bench_upscale.py's up_t2.0 and its H-fit, and the card's name and
+tools/bench_upscale.py's up_t2.0 and its H-fit, the turntable driver's, and the card's name and
 power limit as ``nvidia-smi`` reads them.  Imports nothing of the port
 at module level."""
 
@@ -20,6 +20,15 @@ def slice_config():
         ransac=RansacConfig(n_hyps=1536, threshold=3e-6, chunk=256),
         tvote_rounds=0,
     )
+
+
+def ring_config():
+    """``sfm_tpu_torch/tools/reconstruct_dino.py``'s configuration at its
+    defaults (``--pts-per-octave 512``)."""
+    from sfm_tpu_torch.config import PipelineConfig, RansacConfig, SiftConfig
+
+    return PipelineConfig(sift=SiftConfig(max_pts_per_octave=512),
+                          ransac=RansacConfig(n_hyps=1024, threshold=3e-6, chunk=256))
 
 
 def upscale_config():
